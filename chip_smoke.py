@@ -3,16 +3,20 @@
 
     python3 chip_smoke.py
 
-builds the line_sample Voigt kernel from csrc/ with nvcc and drives the
-port's main path, ``RadiationDriver(lw_gas, sw_gas, solar).run(atm)`` on
-a clean, clear atmosphere, in five phases (one line each):
+builds the two CUDA kernels from csrc/ with nvcc (K1, line_sample Voigt;
+K2, the bin-method Voigt) and drives the port's two main paths,
+``RadiationDriver(lw_gas, sw_gas, solar).run(atm)`` on a clean, clear
+atmosphere with line_sample at LW 0.1 cm-1 and with the bin method at the
+production LW 0.01 cm-1 streamed through 10 spectral blocks, in eight
+phases (one line each):
 
   1. the card: name and power limit as nvidia-smi gives them (on a line
      of their own, then the phase line with the torch / CUDA versions and
      the clocks, temperature and power draw; phase 5 reads them again
      under load);
-  2. the kernel build, timed, with ptxas's register / shared-memory report;
-  3. the kernel against its plain PyTorch version on the card: one
+  2. both kernels built at once, timed, with ptxas's register / spill
+     report;
+  3. K1 against its plain PyTorch version on the card: one
      synthetic molecule on the 1-3250 cm-1 grid at 0.1 cm-1, 4 x 54 rows,
      full block and a block with start > 0 at rtol 2e-6, atol 1e-12, two
      kernel runs bit-identical, every Humlicek region and the
@@ -24,7 +28,23 @@ a clean, clear atmosphere, in five phases (one line each):
      timed steps, 11 kernel launches per step, physical checks; then the
      kernel against the plain version at the main path's shapes (1,728
      rows; LW O2 on the 0.1 cm-1 grid with fsteps 250, SW H2O on the
-     1.0 cm-1 grid with fsteps 25) at rtol 2e-6, atol 1e-12, timed.
+     1.0 cm-1 grid with fsteps 25) at rtol 2e-6, atol 1e-12, timed;
+  6. K2 against its plain version on the card at rtol 2e-5 / atol 2e-6 x
+     max: a synthetic molecule on 1-3250 cm-1 at 0.1 in both modes
+     (bin_sweep, line_sweep), full band and a window at start_bin > 0; a
+     light molecule at 30,000-30,060 cm-1 whose remote lines fall inside
+     Humlicek regions 1-4; two kernel runs bit-identical;
+  7. the reference-C bins golden (tests/data/bins_golden.txt) through
+     GasOptics(method=...) on the card, both methods, rtol 2e-3 / atol
+     1e-7;
+  8. the full-width streamed bin-method step (examples.rfmip_like with
+     lw_method="wavenumber_sweep", lw_res=0.01: 324,901 + 50,000 points,
+     spectral_chunks=10): one untimed and three timed steps, 70 K2 and 40
+     K1 launches per step and no plain launch, physical checks, a profiled
+     step (each kernel's share, the line prep's, the idle share) and the
+     step's host-device synchronisations by source line; then K2 against
+     its plain version at the main path's shapes (1,728 rows, LW O2 at 0.01
+     over one full LW block), timed.
 
 Prints a kernels JSON line and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero without that line; there is no CPU
@@ -40,9 +60,15 @@ import time
 import numpy as np
 
 TOL_KERNEL = dict(rtol=2e-6, atol=1e-12)   # tests/test_pallas.py:96
+TOL_BIN_KERNEL = dict(rtol=2e-5, atol=2e-6)  # x max; test_bins_pallas.py:88
 TOL_GOLDEN = 1e-4                          # tests/test_driver_golden.py:40
+TOL_BINS_GOLDEN = dict(rtol=2e-3, atol=1e-7)  # tests/test_bins.py:59
 REPLACES = "grtcode_tpu/gas_optics/pallas_kernels.py:247"
 SOURCE = "grtcode_tpu_torch/csrc/voigt_line_sample.cu"
+REPLACES_K2 = "grtcode_tpu/gas_optics/bins_pallas.py:215"
+SOURCE_K2 = "grtcode_tpu_torch/csrc/voigt_bins.cu"
+KERNEL_NAMES = {"voigt_line_sample": "voigt_line_sample_kernel",
+                "voigt_bins": "voigt_bins_kernel"}
 
 
 def check(cond, msg):
@@ -83,16 +109,17 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def within(got, want, rtol, atol):
-    """(max |got - want|, worst (|got-want| - atol) / (rtol |want|), where
-    the worst is and the two values there)."""
+def share_of_bound(got, want, rtol, atol):
+    """(max |got - want|, worst |got - want| / (atol + rtol |want|), where
+    the worst is and the two values there): the allclose rule, <= 1
+    passes."""
     err = (got - want).abs()
-    excess = (err - atol) / (rtol * want.abs()).clamp(min=1e-38)
-    i = int(excess.argmax())
+    share = err / (atol + rtol * want.abs())
+    i = int(share.argmax())
     idx = np.unravel_index(i, tuple(got.shape))
     where = (f"at {tuple(int(v) for v in idx)}: {float(got.flatten()[i]):.9e}"
              f" vs {float(want.flatten()[i]):.9e}")
-    return float(err.max()), float(excess.max()), where
+    return float(err.max()), float(share.max()), where
 
 
 def region_census(prep, near, dw):
@@ -115,12 +142,13 @@ def region_census(prep, near, dw):
 
 
 def profile_step(step):
-    """Device time of one profiled step by kernel (torch.profiler): the
-    line_sample kernel's share, the device's idle share of the step's wall
-    time, and the top kernels."""
+    """Device time of one profiled step by kernel (torch.profiler): each
+    CUDA kernel of the port's own and its share of the busy time, the
+    device's idle share of the step's wall time, and the top kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from grtcode_tpu_torch.gas_optics.gas_optics import LINE_PREP_RANGE
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -130,12 +158,22 @@ def profile_step(step):
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     rows = []
+    prep_ms = prep_span_ms = 0.0
+    prep_count = 0
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:     # kernels only, no aten ops
+        if e.key == LINE_PREP_RANGE:
+            # The range appears twice: on the host, whose device time is
+            # that of the kernels launched inside it, and as a device-side
+            # annotation spanning first to last kernel, gaps included.
+            if e.device_type == DeviceType.CUDA:
+                prep_span_ms += e.device_time_total / 1e3
+            else:
+                prep_ms += e.device_time_total / 1e3
+                prep_count += e.count
             continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+            continue                             # kernels only, no aten ops
+        us = e.self_device_time_total
         if us > 0:
             rows.append((e.key, us / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
@@ -143,13 +181,45 @@ def profile_step(step):
     if busy_ms == 0:
         return {"summary": "no device time in the trace (not measured)",
                 "wall_ms": wall_us / 1e3}
-    k1_ms = sum(r[1] for r in rows if "voigt_line_sample" in r[0])
+    kernel_ms = {name: sum(r[1] for r in rows if sym in r[0])
+                 for name, sym in KERNEL_NAMES.items()}
+    shares = ", ".join(f"{name} {ms:.1f} ms ({ms / busy_ms:.1%} of busy)"
+                       for name, ms in kernel_ms.items() if ms > 0)
+    prep = (f"line prep ({prep_count} calls) {prep_ms:.1f} ms of kernels "
+            f"({prep_ms / busy_ms:.1%} of busy) spanning {prep_span_ms:.1f} "
+            f"ms on the device" if prep_ms > 0 else
+            "line prep: no device time attributed (not measured)")
     summary = (f"device busy {busy_ms:.1f} ms of {wall_us / 1e3:.1f} ms wall "
-               f"(idle {1 - busy_ms * 1e3 / wall_us:.1%}), line_sample "
-               f"kernel {k1_ms:.1f} ms ({k1_ms / busy_ms:.1%} of busy)")
+               f"(idle {1 - busy_ms * 1e3 / wall_us:.1%}), {shares}, {prep}")
     return {"summary": summary, "wall_ms": wall_us / 1e3,
-            "busy_ms": busy_ms, "kernel_ms": k1_ms,
+            "busy_ms": busy_ms, "kernel_ms": kernel_ms,
+            "line_prep_ms": prep_ms, "line_prep_span_ms": prep_span_ms,
+            "line_prep_calls": prep_count,
             "top": [dict(name=n[:80], ms=v, count=c) for n, v, c in rows[:12]]}
+
+
+def count_syncs(step):
+    """The host-device synchronisations of one ``step()``, by the line
+    that made them (``torch.cuda.set_sync_debug_mode``): at each, the host
+    waits for the card to drain its queue, and the card then idles until
+    the host has queued the next kernel."""
+    import collections
+    import warnings
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    where = collections.Counter(
+        f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+    return sum(where.values()), where.most_common(8)
 
 
 def phase_card(info):
@@ -167,15 +237,30 @@ def phase_card(info):
 
 
 def phase_build(info):
+    """Both kernels, one nvcc each, started together."""
+    from concurrent.futures import ThreadPoolExecutor
+    from grtcode_tpu_torch.gas_optics import bins_kernel as bk
     from grtcode_tpu_torch.gas_optics import voigt_kernel as vk
+
+    def timed(mod):
+        t0 = time.perf_counter()
+        mod.build()
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    vk.build()
-    secs = time.perf_counter() - t0
-    info["build_s"] = secs
-    info["build_log"] = vk.build_log
-    ptxas = " | ".join(ln.strip() for ln in vk.build_log.splitlines()
-                       if "registers" in ln or "spill" in ln)
-    print(f"phase 2 build: {secs:.2f} s ({ptxas or 'cached'})", flush=True)
+    with ThreadPoolExecutor(2) as pool:
+        secs = dict(zip(("voigt_line_sample", "voigt_bins"),
+                        pool.map(timed, (vk, bk))))
+    total = time.perf_counter() - t0
+    info["build_s"] = dict(secs, total=total)
+    reports = []
+    for name, mod in (("voigt_line_sample", vk), ("voigt_bins", bk)):
+        info[f"build_log_{name}"] = mod.build_log
+        ptxas = " | ".join(ln.strip() for ln in mod.build_log.splitlines()
+                           if "registers" in ln or "spill" in ln)
+        reports.append(f"{name} {secs[name]:.2f} s ({ptxas or 'cached'})")
+    print(f"phase 2 build: {total:.2f} s for both: " + "; ".join(reports),
+          flush=True)
 
 
 def phase_kernel_vs_plain(info, dev):
@@ -230,7 +315,7 @@ def phase_kernel_vs_plain(info, dev):
         return fn(prep, ns, num_wpoints=nw, tau0=tau, start=start, **kw,
                   **extra)
 
-    worst, worst_excess = 0.0, 0.0
+    worst, worst_share = 0.0, 0.0
     blocks = [(0, grid.n), (100 * gas.tile, 50 * gas.tile)]
     for start, nw in blocks:
         got = run(vk.accumulate_voigt, start, nw, ranges=ranges)
@@ -238,22 +323,23 @@ def phase_kernel_vs_plain(info, dev):
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got).all()), "kernel output not finite")
         check(float(want.abs().max()) > 0, "plain version is all zero")
-        err, excess, where = within(got, want, **TOL_KERNEL)
-        check(excess <= 1.0, f"block start={start}: kernel vs plain "
+        err, share, where = share_of_bound(got, want, **TOL_KERNEL)
+        check(share <= 1.0, f"block start={start}: kernel vs plain "
               f"exceeds rtol 2e-6 / atol 1e-12 (max abs err {err:.3e}, "
-              f"worst excess {excess:.3f} {where})")
-        worst, worst_excess = max(worst, err), max(worst_excess, excess)
+              f"{share:.3f} of the bound {where})")
+        worst, worst_share = max(worst, err), max(worst_share, share)
     again = run(vk.accumulate_voigt, 0, grid.n, ranges=ranges)
     first = run(vk.accumulate_voigt, 0, grid.n, ranges=ranges)
     torch.cuda.synchronize()
     check(torch.equal(again, first), "two kernel runs differ")
     info["phase3"] = dict(rows=rows, lines=int(bound.num_lines),
-                          max_abs_err=worst, worst_excess=worst_excess,
+                          max_abs_err=worst, worst_share=worst_share,
                           region_census=census,
                           blocks=blocks)
     print(f"phase 3 kernel vs plain: {rows} rows x {bound.num_lines} lines, "
-          f"blocks {blocks}: max abs err {worst:.3e} within rtol 2e-6 / "
-          f"atol 1e-12, bit-identical reruns, near-core samples per region "
+          f"blocks {blocks}: max abs err {worst:.3e}, at most "
+          f"{worst_share:.3f} of the bound rtol 2e-6 / atol 1e-12, "
+          f"bit-identical reruns, near-core samples per region "
           f"0-4 / Lorentz {census}", flush=True)
     return worst
 
@@ -435,9 +521,9 @@ def full_rows_vs_plain(gas, mol, batch, dev, kernel_reps, plain_reps):
     label = f"{gas.grid.dw:g} cm-1 band, molecule {mol} ({n_lines} lines)"
     check(bool(torch.isfinite(got).all()), f"{label}: kernel not finite")
     check(float(want.abs().max()) > 0, f"{label}: plain version all zero")
-    err, excess, where = within(got, want, **TOL_KERNEL)
-    check(excess <= 1.0, f"{label}: kernel vs plain exceeds rtol 2e-6 / "
-          f"atol 1e-12 (max abs err {err:.3e}, worst excess {excess:.3f} "
+    err, share, where = share_of_bound(got, want, **TOL_KERNEL)
+    check(share <= 1.0, f"{label}: kernel vs plain exceeds rtol 2e-6 / "
+          f"atol 1e-12 (max abs err {err:.3e}, {share:.3f} of the bound "
           f"{where})")
     del got, want
 
@@ -451,11 +537,356 @@ def full_rows_vs_plain(gas, mol, batch, dev, kernel_reps, plain_reps):
     k_ms, p_ms = float(np.mean(kernel_ms)), float(np.mean(plain_ms))
     return dict(
         rows=rows, lines=n_lines, nw=kw["num_wpoints"], fsteps=kw["fsteps"],
-        near=kw["near"], max_abs_err=err, worst_excess=excess,
+        near=kw["near"], max_abs_err=err, worst_share=share,
         kernel_ms=kernel_ms, plain_ms=plain_ms, ms=k_ms, plain_ms_mean=p_ms,
-        summary=(f"{label} max abs err {err:.3e} (worst excess "
-                 f"{excess:.3f}), kernel {k_ms:.2f} ms vs plain "
+        summary=(f"{label} max abs err {err:.3e} ({share:.3f} of the "
+                 f"bound), kernel {k_ms:.2f} ms vs plain "
                  f"{p_ms:.2f} ms"))
+
+
+def lcg_lines(n_lines=40):
+    """The bins-golden harness's LCG line list (tools/goldens/
+    bins_harness.c, as tests/test_gasoptics_pipeline.py reproduces it):
+    uint32 wraparound is the LCG's modulus."""
+    v0, s0, yair, yself, en, nexp, iso = (np.empty(n_lines) for _ in range(7))
+    s = np.uint32(12345)
+    with np.errstate(over="ignore"):
+        for i in range(n_lines):
+            r = []
+            for _ in range(3):
+                s = np.uint32(s * np.uint32(1103515245) + np.uint32(12345))
+                r.append(float(s >> np.uint32(8)) / 16777216.0)
+            r1, r2, r3 = r
+            v0[i] = 150.0 + 200.0 * i / (n_lines - 1.0) + 2.0 * (r1 - 0.5)
+            s0[i] = 1e-23 * 10.0 ** (3.0 * r2)
+            yair[i] = 0.02 + 0.08 * r3
+            yself[i] = 0.1 + 0.3 * r1
+            en[i] = 2000.0 * r2
+            nexp[i] = 0.4 + 0.4 * r3
+            iso[i] = 1 + (i % 3)
+    return v0, s0, yair, yself, en, nexp, iso.astype(np.int32)
+
+
+def bin_molecule(dev, w0, wn, n_lines, seed, B, nlev, spread):
+    """(GasOptics, PreparedLines, column densities) of one synthetic
+    molecule on [w0, wn] at 0.1 cm-1, its lines spread ``spread`` cm-1
+    past both ends, on B x (nlev - 1) rows (tests/test_bins_pallas.py's
+    setup)."""
+    import torch
+    from grtcode_tpu_torch import constants
+    from grtcode_tpu_torch.gas_optics import lines
+    from grtcode_tpu_torch.gas_optics.gas_optics import GasOptics
+    from grtcode_tpu_torch.gas_optics.hitran import synthetic_catalog
+    from grtcode_tpu_torch.spectral import SpectralGrid
+    from grtcode_tpu_torch.utils import curtis_godson as cg
+
+    rng = np.random.default_rng(seed)
+    vnn = np.sort(rng.uniform(w0 - spread, wn + spread, n_lines))
+    cat = synthetic_catalog(
+        1, vnn, rng.uniform(1e-22, 1e-19, n_lines),
+        yair=rng.uniform(0.02, 0.1, n_lines),
+        yself=rng.uniform(0.05, 0.4, n_lines),
+        en=rng.uniform(0.0, 2000.0, n_lines),
+        n=rng.uniform(0.4, 0.8, n_lines),
+        d=rng.uniform(-0.02, 0.02, n_lines))
+    gas = GasOptics(SpectralGrid(w0, wn, 0.1), device=dev)
+    gas.add_catalog(cat)
+    p = np.linspace(0.01, 1013.0, nlev)[None, :] * np.ones((B, 1))
+    t = np.linspace(215.0, 288.0, nlev)[None, :] + \
+        rng.uniform(-3, 3, (B, nlev))
+    x = rng.uniform(1e-5, 1e-2, (B, nlev))
+
+    def f32(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    p_atm = f32(p) * constants.MB_TO_ATM
+    pavg, tavg = cg.layer_pressures_temperatures(p_atm, f32(t))
+    psavg, ns = cg.partial_pressures_and_densities(
+        p_atm, f32(x), cg.number_densities(p_atm))
+    rows = B * (nlev - 1)
+    prep = lines.prepare(gas.molecules[1], gas.grid, pavg.reshape(rows),
+                         tavg.reshape(rows), psavg.reshape(rows))
+    return gas, prep, ns.reshape(rows).contiguous()
+
+
+def remote_census(prep, ranges, bins):
+    """Counts of remote (row, line, coarse point) samples per Humlicek
+    region (0-4) and in the pure-Lorentz limit (5), by the plain version's
+    limits."""
+    import torch
+    from grtcode_tpu_torch import constants
+    from grtcode_tpu_torch.gas_optics.voigt import humlicek_region
+    repwid = constants.SQRT_LN2 / prep.doppler
+    y_true = repwid * prep.lorentz
+    y = y_true.clamp(max=70.0)
+    bnd = ranges.bounds()
+    w_rel = bins.w_rel
+    counts = torch.zeros(6, dtype=torch.int64, device=prep.strength.device)
+    for j in range(bins.n):
+        for lo, hi in ((bnd[2, j], bnd[3, j]), (bnd[4, j], bnd[5, j])):
+            if hi <= lo:
+                continue
+            sl = slice(int(lo), int(hi))
+            for k in range(3):
+                x = ((float(w_rel[j, k])
+                      - prep.center_idx[:, sl].to(torch.float32))
+                     - prep.center_frac[:, sl]) * bins.wres * repwid[:, sl]
+                region = torch.where(y_true[:, sl] >= 70.55, 5,
+                                     humlicek_region(x.abs(), y[:, sl]))
+                counts += torch.bincount(region.flatten(), minlength=6)
+    return counts.tolist()
+
+
+def phase_bin_kernel_vs_plain(info, dev):
+    import torch
+    from grtcode_tpu_torch.gas_optics import bins as bm
+    from grtcode_tpu_torch.gas_optics import bins_kernel as bk
+
+    heavy = bin_molecule(dev, 1.0, 3250.0, 2000, 11, B=4, nlev=55,
+                         spread=0.0)
+    light = bin_molecule(dev, 30000.0, 30060.0, 60, 11, B=3, nlev=7,
+                         spread=10.0)
+    cases = [("heavy", heavy, "bin_sweep", 0, None),
+             ("heavy", heavy, "bin_sweep", 800, 400),
+             ("heavy", heavy, "line_sweep", 0, None),
+             ("heavy", heavy, "line_sweep", 2904, 88),   # past the band
+             ("light", light, "bin_sweep", 0, None),
+             ("light", light, "line_sweep", 8, 40)]
+    worst, worst_share, results = 0.0, 0.0, []
+    census = None
+    for label, (gas, prep, ns), mode, b0, nb in cases:
+        ranges = bm.build_bin_ranges(gas._raw_bounds[1], gas.bins, mode=mode,
+                                     remote_cutoff=gas.wcutoff)
+        kw = dict(start_bin=b0, nbins=nb)
+        got = bk.accumulate_bins_kernel(prep, ns, ranges, gas.bins, **kw)
+        want = bm.accumulate_bins(prep, ns, ranges, gas.bins, **kw)
+        torch.cuda.synchronize()
+        for part, g, w in zip(("fine", "coarse"), got, want):
+            check(bool(torch.isfinite(g).all()), f"{label} {mode}: kernel "
+                  f"{part} not finite")
+            scale = float(w.abs().max())
+            check(scale > 0, f"{label} {mode} {part}: plain version all 0")
+            err, share, where = share_of_bound(
+                g, w, TOL_BIN_KERNEL["rtol"], TOL_BIN_KERNEL["atol"] * scale)
+            check(share <= 1.0, f"{label} {mode} window ({b0}, {nb}) "
+                  f"{part}: kernel vs plain exceeds rtol 2e-5 / atol 2e-6 x "
+                  f"max (max abs err {err:.3e}, {share:.3f} of the bound "
+                  f"{where})")
+            worst, worst_share = max(worst, err), max(worst_share, share)
+            results.append(dict(case=label, mode=mode, window=[b0, nb],
+                                part=part, max_abs_err=err, share=share,
+                                scale=scale))
+        if label == "light" and census is None:
+            census = remote_census(prep, ranges, gas.bins)
+            check(sum(census[1:5]) > 0, f"light molecule: no remote sample "
+                  f"in Humlicek regions 1-4: {census}")
+        if b0 == 0 and nb is None and label == "heavy" and mode == \
+                "bin_sweep":
+            again = bk.accumulate_bins_kernel(prep, ns, ranges, gas.bins,
+                                              **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(again[0], got[0]) and
+                  torch.equal(again[1], got[1]), "two K2 runs differ")
+    info["phase6"] = dict(results=results, max_abs_err=worst,
+                          worst_share=worst_share, remote_census=census)
+    print(f"phase 6 K2 vs plain: {len(cases)} cases (both modes, windows at "
+          f"start_bin > 0 and past the band, heavy {heavy[1].strength.shape} "
+          f"and light molecule) within rtol 2e-5 / atol 2e-6 x max: max abs "
+          f"err {worst:.3e}, at most {worst_share:.4f} of the bound; "
+          f"bit-identical "
+          f"reruns; light molecule remote samples per region 0-4 / Lorentz "
+          f"{census}", flush=True)
+    return worst
+
+
+def phase_bins_golden(info, dev):
+    from grtcode_tpu_torch import constants
+    from grtcode_tpu_torch.gas_optics.gas_optics import GasOptics
+    from grtcode_tpu_torch.gas_optics.hitran import synthetic_catalog
+    from grtcode_tpu_torch.spectral import SpectralGrid
+
+    nlev = 9
+    data = np.loadtxt(os.path.join("tests", "data", "bins_golden.txt"))
+    data = data.reshape(2, nlev - 1, -1)
+    v0, s0, yair, yself, en, nexp, iso = lcg_lines()
+    i = np.arange(nlev)
+    p_atm = 1e-5 + (1.0 - 1e-5) * i / (nlev - 1.0)
+    t = 215.0 + (288.0 - 215.0) * i / (nlev - 1.0)
+    x = 1e-5 + 3e-3 * i / (nlev - 1.0)
+    worst = {}
+    for golden, method in zip(data, ("wavenumber_sweep", "line_sweep")):
+        gas = GasOptics(SpectralGrid(100.0, 400.0, 0.1), line_chunk=64,
+                        method=method, device=dev)
+        gas.add_catalog(synthetic_catalog(
+            1, v0, s0, yair=yair, yself=yself, en=en, n=nexp,
+            d=np.zeros_like(v0), iso=iso))
+        tau = gas.optical_depth(p_atm / constants.MB_TO_ATM, t,
+                                {1: x}).cpu().numpy()
+        check(tau.shape == golden.shape, f"{method}: shape {tau.shape}")
+        # |tau - golden| over its bound atol + rtol |golden| (<= 1 passes).
+        ratio = np.abs(tau - golden) / (TOL_BINS_GOLDEN["atol"]
+                                        + TOL_BINS_GOLDEN["rtol"]
+                                        * np.abs(golden))
+        worst[method] = float(np.max(ratio))
+        check(worst[method] <= 1.0, f"bins golden {method}: worst error "
+              f"{worst[method]:.3f} of the bound rtol 2e-3 / atol 1e-7")
+    info["phase7"] = worst
+    print("phase 7 reference-C bins golden: worst error as a share of the "
+          "bound rtol 2e-3 / atol 1e-7: " + ", ".join(f"{k} {v:.3f}" for k, v in worst.items()),
+          flush=True)
+
+
+def phase_streamed_bins(info, dev, card):
+    import torch
+    from grtcode_tpu_torch import examples
+    from grtcode_tpu_torch.framework.driver import RadiationDriver
+    from grtcode_tpu_torch.gas_optics import bins as bm
+    from grtcode_tpu_torch.gas_optics import bins_kernel as bk
+    from grtcode_tpu_torch.gas_optics import voigt_kernel as vk
+
+    S = 10
+    t0 = time.perf_counter()
+    lw_gas, sw_gas, solar, batch, B, nlayers = examples.rfmip_like(
+        device=dev, lw_method="wavenumber_sweep", lw_res=0.01)
+    atm = examples.atmosphere(batch)
+    driver = RadiationDriver(lw_gas, sw_gas, solar)
+    setup_s = time.perf_counter() - t0
+    n_lw, n_sw = len(lw_gas.molecules), len(sw_gas.molecules)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def step():
+        return driver.run(atm, integrated=True,
+                          spectral_chunks=S).tiers["csaf"]
+
+    # The streamed bin-method path, with every launch count starting at 0.
+    counts = (bk.accumulate_bins_kernel, vk.accumulate_voigt,
+              bm.accumulate_bins, vk.voigt_line_sample_reference)
+    for fn in counts:
+        fn.launches = 0
+    step_s = []
+    res = None
+    for i in range(4):
+        before = (bk.accumulate_bins_kernel.launches,
+                  vk.accumulate_voigt.launches)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+        if i == 3:
+            under_load = clocks()
+        k2 = bk.accumulate_bins_kernel.launches - before[0]
+        k1 = vk.accumulate_voigt.launches - before[1]
+        check((k2, k1) == (n_lw * S, n_sw * S),
+              f"step {i}: {k2} K2 and {k1} K1 launches, expected "
+              f"{n_lw * S} and {n_sw * S}")
+    launches = {"voigt_bins": bk.accumulate_bins_kernel.launches,
+                "voigt_line_sample": vk.accumulate_voigt.launches}
+    plain = (bm.accumulate_bins.launches,
+             vk.voigt_line_sample_reference.launches)
+    check(plain == (0, 0), f"the plain versions ran {plain} times on the "
+          "streamed bin-method path")
+    peak = torch.cuda.max_memory_allocated()
+
+    for var, v in res.items():
+        check(tuple(v.shape) == (B, nlayers + 1), f"{var}: shape {v.shape}")
+        check(bool(torch.isfinite(v).all()), f"{var}: not finite")
+    check(float(res["rld"][:, 0].abs().max()) == 0.0, "rld at TOA != 0")
+    want = torch.as_tensor(batch["tsi"] * batch["mu"], dtype=torch.float32,
+                           device=dev)
+    rel = float(((res["rsd"][:, 0] - want).abs() / want).max())
+    check(rel < 1e-4, f"rsd at TOA vs tsi*mu: rel err {rel:.2e}")
+    check(bool((res["rlu"][:, 0] > 0).all()), "OLR not positive")
+
+    ms = 1e3 * float(np.mean(step_s[1:]))
+    rows = B * nlayers
+    points = rows * (lw_gas.grid.n + sw_gas.grid.n)
+    rate = points / (ms / 1e3)
+    breakdown = profile_step(step)
+    syncs, sync_sites = count_syncs(step)
+    size_lw = -(-(-(-lw_gas.grid.n // S)) // lw_gas.block_quantum) * \
+        lw_gas.block_quantum
+    o2 = bin_full_rows_vs_plain(lw_gas, 7, batch, dev,
+                                nbins=size_lw // lw_gas.bins.ppb,
+                                kernel_reps=5, plain_reps=1)
+    info["phase8"] = dict(
+        card=card, setup_s=setup_s, step_s=step_s, ms_per_step=ms,
+        points_per_step=points, points_per_s=rate, peak_bytes=peak,
+        launches=launches, B=B, nlayers=nlayers, clocks=under_load,
+        nw=[lw_gas.grid.n, sw_gas.grid.n], spectral_chunks=S,
+        block_lw=size_lw, bins=[lw_gas.bins.n, lw_gas.bins.ppb,
+                                lw_gas.bins.last_ppb],
+        lw_o2=o2, profile=breakdown, syncs=syncs, sync_sites=sync_sites)
+    print(f"phase 8 streamed bin-method step ({card}): B={B} x {nlayers} "
+          f"layers x ({lw_gas.grid.n} + {sw_gas.grid.n}) points in {S} "
+          f"blocks (LW {size_lw}), {n_lw * S} K2 + {n_sw * S} K1 launches/"
+          f"step, no plain launch, {ms:.1f} ms/step (steps "
+          f"{[round(s, 3) for s in step_s]} s; clocks after the last: "
+          f"{under_load}), {rate:.4e} points/s, peak {peak / 2 ** 30:.2f} "
+          f"GiB; profiled step: {breakdown['summary']}; {syncs} host-device "
+          f"synchronisations per step, most at {sync_sites[:3]}; K2 vs plain at "
+          f"{rows} rows within rtol 2e-5 / atol 2e-6 x max: {o2['summary']}",
+          flush=True)
+    return launches, o2
+
+
+def bin_full_rows_vs_plain(gas, mol, batch, dev, nbins, kernel_reps,
+                           plain_reps):
+    """K2 and its plain version on one molecule of the LW band over the
+    first spectral block (``nbins`` bins) at the main path's rows: each
+    into its own zeroed buffers, held to TOL_BIN_KERNEL, then timed plain,
+    kernel, kernel, plain."""
+    import torch
+    from grtcode_tpu_torch.gas_optics import bins as bm
+    from grtcode_tpu_torch.gas_optics import bins_kernel as bk
+
+    prep, ns, _ = band_prep(gas, mol, batch, dev)
+    rows, n_lines = prep.strength.shape
+    ranges = gas._get_bin_ranges(mol)
+    kw = dict(start_bin=0, nbins=nbins)
+
+    def zeros():
+        return (torch.zeros((rows, nbins * gas.bins.ppb), device=dev),
+                torch.zeros((rows, nbins, bm.NIP), device=dev))
+
+    def kernel(buf):
+        return bk.accumulate_bins_kernel(prep, ns, ranges, gas.bins, **kw,
+                                         tau0=buf[0], bins_tau0=buf[1])
+
+    def plain(buf):
+        return bm.accumulate_bins(prep, ns, ranges, gas.bins, **kw,
+                                  tau0=buf[0], bins_tau0=buf[1])
+
+    got, want = kernel(zeros()), plain(zeros())
+    torch.cuda.synchronize()
+    label = (f"{gas.grid.dw:g} cm-1 band, molecule {mol} ({n_lines} lines, "
+             f"{nbins} bins of {gas.bins.ppb})")
+    worst, worst_share = 0.0, 0.0
+    for part, g, w in zip(("fine", "coarse"), got, want):
+        check(bool(torch.isfinite(g).all()), f"{label}: kernel not finite")
+        scale = float(w.abs().max())
+        check(scale > 0, f"{label} {part}: plain version all zero")
+        err, share, where = share_of_bound(g, w, TOL_BIN_KERNEL["rtol"],
+                                           TOL_BIN_KERNEL["atol"] * scale)
+        check(share <= 1.0, f"{label} {part}: kernel vs plain exceeds "
+              f"rtol 2e-5 / atol 2e-6 x max (max abs err {err:.3e}, "
+              f"{share:.3f} of the bound {where})")
+        worst, worst_share = max(worst, err), max(worst_share, share)
+    del got, want
+
+    buf = zeros()
+    plain_ms = [cuda_ms(lambda: plain(buf), plain_reps)]
+    kernel_ms = [cuda_ms(lambda: kernel(buf), kernel_reps) for _ in range(2)]
+    plain_ms.append(cuda_ms(lambda: plain(buf), plain_reps))
+    k_ms, p_ms = float(np.mean(kernel_ms)), float(np.mean(plain_ms))
+    return dict(
+        rows=rows, lines=n_lines, nbins=nbins, ppb=gas.bins.ppb,
+        max_abs_err=worst, worst_share=worst_share, kernel_ms=kernel_ms,
+        plain_ms=plain_ms, ms=k_ms, plain_ms_mean=p_ms,
+        summary=(f"{label} max abs err {worst:.3e} (at most "
+                 f"{worst_share:.4f} of the bound), kernel {k_ms:.2f} ms vs "
+                 f"plain {p_ms:.2f} ms"))
 
 
 def main():
@@ -470,21 +901,34 @@ def main():
     import grtcode_tpu_torch  # noqa: F401  (fails outside the repo)
 
     info = {}
+    t0 = time.perf_counter()
     phase_card(info)
     phase_build(info)
     err3 = phase_kernel_vs_plain(info, dev)
     phase_golden(info, dev)
-    launches, err5, o2 = phase_full_width(info, dev, info["card"])
+    k1_launches, err5, o2 = phase_full_width(info, dev, info["card"])
+    torch.cuda.empty_cache()
+    err6 = phase_bin_kernel_vs_plain(info, dev)
+    phase_bins_golden(info, dev)
+    launches8, o2_bins = phase_streamed_bins(info, dev, info["card"])
     check("jax" not in sys.modules, "JAX was imported")
+    info["seconds"] = time.perf_counter() - t0
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(info, f, indent=1, default=str)
-    print(json.dumps({"kernels": [{
-        "name": "voigt_line_sample", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": launches,
-        "max_abs_err": max(err3, err5), "ms": o2["ms"],
-        "plain_ms": o2["plain_ms_mean"]}]}))
+    # K1 runs on both paths (all 11 molecules at 0.1, the 4 SW molecules
+    # in each block of the streamed one); its launches are both counts.
+    print(json.dumps({"kernels": [
+        {"name": "voigt_line_sample", "route": "cuda", "source": SOURCE,
+         "replaces": REPLACES,
+         "launches": k1_launches + launches8["voigt_line_sample"],
+         "max_abs_err": max(err3, err5), "ms": o2["ms"],
+         "plain_ms": o2["plain_ms_mean"]},
+        {"name": "voigt_bins", "route": "cuda", "source": SOURCE_K2,
+         "replaces": REPLACES_K2, "launches": launches8["voigt_bins"],
+         "max_abs_err": max(err6, o2_bins["max_abs_err"]),
+         "ms": o2_bins["ms"], "plain_ms": o2_bins["plain_ms_mean"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

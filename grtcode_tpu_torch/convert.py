@@ -1,7 +1,8 @@
 """Build the port's state from the JAX package's objects.
 
 Each converter reads the JAX object's fields with ``np.asarray`` (grid-bound
-line arrays, near-core widths, per-tile line ranges, continuum and
+line arrays, padded and unpadded, near-core widths, per-tile line ranges,
+the bin-method settings, continuum and
 cross-section tables, the solar spectrum, the atmosphere) and builds the
 port's counterpart, so both packages compute the same thing from the same
 state.  Nothing here imports JAX: the objects are read by their fields.
@@ -48,12 +49,20 @@ def gas_optics_from_jax(gas, device) -> GasOptics:
     port = GasOptics(_grid(gas.grid), wcutoff=float(gas.wcutoff),
                      hitran_path=gas.hitran_path, tips=_tips(gas.tips),
                      line_chunk=int(gas.line_chunk), method=gas.method,
-                     tile=int(gas.tile), ch=int(gas.pallas_ch), device=device)
-    for mol_id, gl in gas.molecules.items():
-        port.molecules[mol_id] = lines_mod.GridLines(
+                     bin_width=float(gas.bin_width),
+                     bin_group=int(gas.bin_group), tile=int(gas.tile),
+                     ch=int(gas.pallas_ch), device=device)
+
+    def grid_lines(gl):
+        return lines_mod.GridLines(
             mol_id=int(gl.mol_id), mass_g=float(gl.mass_g),
             num_iso=int(gl.num_iso),
             **{f: np.asarray(getattr(gl, f)) for f in _LINE_ARRAYS})
+
+    for mol_id, gl in gas.molecules.items():
+        port.molecules[mol_id] = grid_lines(gl)
+        # The bin methods bracket lines on the unpadded catalog.
+        port._raw_bounds[mol_id] = grid_lines(gas._raw_bounds[mol_id])
         port.near_steps[mol_id] = int(gas.near_steps[mol_id])
         cr = gas.chunk_ranges[mol_id]
         port.chunk_ranges[mol_id] = ChunkRanges(

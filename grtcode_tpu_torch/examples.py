@@ -2,13 +2,15 @@
 reference-C driver-golden case, built for the port.
 
 :func:`rfmip_like` builds the same model and batch as the JAX benchmark
-(``bench.py::build`` at its defaults): 7 longwave molecules at
-HITRAN2016-scale line counts (366,000 lines) and 4 shortwave molecules
-(64,000 lines), H2O + O3 continua, 3 CFC and 3 CIA cross sections, the LW
-band 1-3250 cm-1 at 0.1 and the SW band 1-50,000 cm-1 at 1.0, and B = 32
-columns of 54 layers.  Seeds, line counts, grids and profiles are the
-benchmark's, so the catalogs and batch are identical; ``smoke`` shrinks
-the line counts 64x and the grids 8x.
+(``bench.py::build``): 7 longwave molecules at HITRAN2016-scale line
+counts (366,000 lines) and 4 shortwave molecules (64,000 lines), H2O + O3
+continua, 3 CFC and 3 CIA cross sections, the LW band 1-3250 cm-1 (at 0.1
+by default; ``lw_res=0.01`` is the production resolution, 324,901 points)
+with the LW method ``lw_method`` (line_sample by default, or a bin method),
+the SW band 1-50,000 cm-1 at 1.0 with line_sample, and B = 32 columns of
+54 layers.  Seeds, line counts, grids and profiles are the benchmark's, so
+the catalogs and batch are identical; ``smoke`` shrinks the line counts
+64x and the grids 8x.
 
 :func:`golden_case` builds the clean, clear case of the end-to-end
 reference-C golden (tests/data/driver_golden.txt) from the input files
@@ -44,13 +46,13 @@ SURFACE_DT = 1.5        # surface temperature above the bottom level [K]
 
 
 def rfmip_like(smoke: bool = False, batch_size: int | None = None, *,
-               device):
+               device, lw_method: str = "line_sample", lw_res: float = 0.1):
     """(lw_gas, sw_gas, solar, batch, B, nlayers) on ``device``, as
-    ``bench.build(smoke, batch_size)`` returns them for the JAX package.
-    ``batch`` holds numpy profiles; :func:`atmosphere` turns it into an
-    :class:`Atmosphere`."""
+    ``bench.build(smoke, batch_size, lw_method=..., lw_res=...)`` returns
+    them for the JAX package.  ``batch`` holds numpy profiles;
+    :func:`atmosphere` turns it into an :class:`Atmosphere`."""
     shrink = 64 if smoke else 1
-    lw_grid = SpectralGrid(1.0, 3250.0, 0.1 * (8 if smoke else 1))
+    lw_grid = SpectralGrid(1.0, 3250.0, lw_res * (8 if smoke else 1))
     sw_grid = SpectralGrid(1.0, 50000.0, 1.0 * (8 if smoke else 1))
     B = batch_size if batch_size else (4 if smoke else 32)
     nlayers = 54
@@ -95,7 +97,7 @@ def rfmip_like(smoke: bool = False, batch_size: int | None = None, *,
 
     lw_h2o, lw_o3 = continua(lw_grid)
     lw_gas = GasOptics(lw_grid, line_chunk=1024, h2o_ctm=lw_h2o,
-                       o3_ctm=lw_o3, method="line_sample", device=device)
+                       o3_ctm=lw_o3, method=lw_method, device=device)
     for seed, (mol, L) in enumerate(LW_LINES.items()):
         lw_gas.add_catalog(catalog(mol, lw_grid, max(64, L // shrink), seed))
     xsec_tables(lw_gas, lw_grid)

@@ -2,11 +2,11 @@
 grtcode_tpu/gas_optics/gas_optics.py).
 
 Absorbers are registered once on the host (data loading, grid binding,
-per-tile line-range tables); :meth:`GasOptics.optical_depth` is the device
-forward pass: Curtis-Godson prep -> per-molecule line prep and the
-line_sample Voigt kernel -> continua -> CFC -> CIA.  The (batch, layer)
-plane flattens into one "rows" axis, so the whole batch is one kernel
-launch per molecule.
+per-tile and per-bin line-range tables); :meth:`GasOptics.optical_depth`
+is the device forward pass: Curtis-Godson prep -> per-molecule line prep
+and the line_sample or bin Voigt kernel -> continua -> CFC -> CIA -> (bin
+methods) the wing interpolation.  The (batch, layer) plane flattens into
+one "rows" axis, so the whole batch is one kernel launch per molecule.
 """
 from __future__ import annotations
 
@@ -14,14 +14,17 @@ import dataclasses
 import math
 from typing import Mapping
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .. import constants
 from ..spectral import SpectralGrid
 from ..utils import curtis_godson as cg
+from . import bins as bins_mod
 from . import lines as lines_mod
 from . import tips as tips_mod
+from .bins_kernel import accumulate_bins_kernel
 from .continua import OzoneContinuum, WaterVaporContinuum
 from .hitran import LineCatalog, parse_par_file
 from .molecules import MoleculeId
@@ -29,6 +32,10 @@ from .voigt_kernel import accumulate_voigt, build_chunk_ranges
 from .xsec import CrossSectionTable
 
 _SAMPLING_METHODS = ("tiled", "line_sample")
+_BIN_METHODS = ("wavenumber_sweep", "line_sweep")
+# torch.profiler range around each molecule's line prep, so a trace shows
+# what the per-block recomputation of a streamed step costs.
+LINE_PREP_RANGE = "grtcode::line_prep"
 
 
 @dataclasses.dataclass
@@ -43,9 +50,14 @@ class GasOptics:
     tips: object = None
     line_chunk: int = 1024   # catalogs pad to a multiple of this
     # "tiled" / "line_sample": exact per-point sampling over the +-cutoff
-    # window (the reference driver's production method).  The bin
-    # methods ("wavenumber_sweep", "line_sweep") are not ported yet.
+    # window (the reference driver's production method).
+    # "wavenumber_sweep": bin sweep, wings at 3 points per bin,
+    # quadratically interpolated (kernels.c:177-304).
+    # "line_sweep": per-line local window + binned wings
+    # (kernels.c:306-406).
     method: str = "tiled"
+    bin_width: float = 1.0   # [cm-1] for the bin methods
+    bin_group: int = 8       # bins per spectral-block quantum (bin methods)
     tile: int = 64           # spectral tile width of the kernel
     ch: int = 32             # line-range alignment of the tile tables
     molecules: dict = dataclasses.field(default_factory=dict)   # id -> GridLines
@@ -59,6 +71,9 @@ class GasOptics:
         self.device = torch.device(self.device)
         if self.tips is None:
             self.tips = tips_mod.default_tips()
+        if self.method not in _SAMPLING_METHODS + _BIN_METHODS:
+            raise ValueError(f"method {self.method!r}: expected one of "
+                             f"{_SAMPLING_METHODS + _BIN_METHODS}")
         if not (constants.MIN_LINE_CUTOFF <= self.wcutoff
                 <= constants.MAX_LINE_CUTOFF):
             raise ValueError(f"cutoff {self.wcutoff} outside allowed range")
@@ -66,15 +81,50 @@ class GasOptics:
         eighth = -(-self.grid.n // 8)
         self.tile = min(self.tile, max(8, -(-eighth // 8) * 8))
         self.ch = min(self.ch, max(8, -(-self.line_chunk // 8) * 8))
+        # ~1 cm-1 spectral bins for the bin methods (gas_optics.c:73-81).
+        self.bins = bins_mod.create_spectral_bins(
+            self.grid.n, self.grid.w0, self.grid.dw, self.bin_width)
+        self._bin_ranges = {}     # id -> BinRanges
+        self._raw_bounds = {}     # id -> unpadded GridLines
+        self._wrel = {}           # (nbins, start_bin) -> device table
 
     @property
     def block_quantum(self) -> int:
-        """Spectral-block alignment unit (the kernel's tile)."""
+        """Spectral-block alignment unit: a whole group of bins for the bin
+        methods, the kernel's tile for the sampling methods."""
+        if self.method in _BIN_METHODS:
+            return self.bins.ppb * self.bin_group
         return self.tile
 
     @property
     def _fsteps(self) -> int:
         return int(math.ceil(self.wcutoff / self.grid.dw))
+
+    def _get_bin_ranges(self, mol_id: int) -> bins_mod.BinRanges:
+        """Per-bin line ranges (host, cached), built on the unpadded
+        catalog."""
+        if mol_id not in self._bin_ranges:
+            mode = ("bin_sweep" if self.method == "wavenumber_sweep"
+                    else "line_sweep")
+            self._bin_ranges[mol_id] = bins_mod.build_bin_ranges(
+                self._raw_bounds[mol_id], self.bins, mode=mode,
+                remote_cutoff=self.wcutoff)
+        return self._bin_ranges[mol_id]
+
+    def _block_w_rel(self, start_bin: int, nbins: int):
+        """(nbins, NIP) f32 interpolation positions of the bin window on
+        the device.  Bins past the band get the safe rows [0, 1, 2]
+        (nonzero x1, x2), so their zero wings interpolate to zero and
+        never to 0/0."""
+        key = (nbins, start_bin)
+        if key not in self._wrel:
+            w = self.bins.w_rel
+            pad = np.tile(np.arange(bins_mod.NIP, dtype=np.float32),
+                          (max(0, start_bin + nbins - self.bins.n), 1))
+            self._wrel[key] = torch.as_tensor(
+                np.concatenate([w, pad])[start_bin:start_bin + nbins],
+                device=self.device)
+        return self._wrel[key]
 
     # -- registration (host side) -----------------------------------------
     def add_molecule(self, mol_id, min_line_center: float | None = None,
@@ -92,6 +142,7 @@ class GasOptics:
         if catalog.mol_id in self.molecules:
             raise ValueError(f"molecule {catalog.mol_id} already added")
         bound = lines_mod.bind_to_grid(catalog, self.grid)
+        self._raw_bounds[catalog.mol_id] = bound
         padded = bound.pad_to(
             max(self.line_chunk,
                 -(-bound.num_lines // self.line_chunk) * self.line_chunk))
@@ -137,10 +188,6 @@ class GasOptics:
             [block_start, block_start + block_size); ``block_start`` must
             be a multiple of :attr:`block_quantum`.
         """
-        if self.method not in _SAMPLING_METHODS:
-            raise NotImplementedError(
-                f"method {self.method!r}: the bin methods are ROADMAP "
-                "queue 1, O1 (kernel K2)")
         cfc_vmr = cfc_vmr or {}
         cia_vmr = cia_vmr or {}
         f32 = torch.float32
@@ -179,17 +226,41 @@ class GasOptics:
             return padded[start:start + nw]
 
         tau = torch.zeros((rows, nw), dtype=f32, device=self.device)
+        bin_method = self.method in _BIN_METHODS
+        if bin_method:
+            # The block is a whole number of bin groups and needs nothing
+            # outside itself: every fine point and coarse triple of its
+            # bins receives all its line contributions here.
+            ppb = self.bins.ppb
+            if nw % self.block_quantum and block_size is not None:
+                raise ValueError(
+                    f"bin-method block_size {nw} must be a multiple of "
+                    f"block_quantum {self.block_quantum}")
+            start_bin = start // ppb
+            nbins = -(-nw // ppb)
+            tau_bins = torch.zeros((rows, nbins * ppb), dtype=f32,
+                                   device=self.device)
+            bins_tau = torch.zeros((rows, nbins, bins_mod.NIP), dtype=f32,
+                                   device=self.device)
         for mol_id, bound in self.molecules.items():
             x = lev(vmr[mol_id])
             psavg2, ns2 = cg.partial_pressures_and_densities(p2, x, n2d)
             psavg, ns = psavg2.reshape(rows), ns2.reshape(rows)
-            prep = lines_mod.prepare(bound, self.grid, pavg, tavg, psavg,
-                                     tips=self.tips)
-            accumulate_voigt(prep, ns, self.chunk_ranges[mol_id],
-                             num_wpoints=nw, dw=float(self.grid.dw),
-                             fsteps=self._fsteps,
-                             near=self.near_steps[mol_id],
-                             num_global=self.grid.n, tau0=tau, start=start)
+            with torch.profiler.record_function(LINE_PREP_RANGE):
+                prep = lines_mod.prepare(bound, self.grid, pavg, tavg, psavg,
+                                         tips=self.tips)
+            if bin_method:
+                accumulate_bins_kernel(
+                    prep, ns, self._get_bin_ranges(mol_id), self.bins,
+                    start_bin=start_bin, nbins=nbins, tau0=tau_bins,
+                    bins_tau0=bins_tau)
+            else:
+                accumulate_voigt(prep, ns, self.chunk_ranges[mol_id],
+                                 num_wpoints=nw, dw=float(self.grid.dw),
+                                 fsteps=self._fsteps,
+                                 near=self.near_steps[mol_id],
+                                 num_global=self.grid.n, tau0=tau,
+                                 start=start)
             del prep
             if mol_id == int(MoleculeId.H2O) and self.h2o_ctm is not None:
                 ctm = self.h2o_ctm
@@ -216,6 +287,21 @@ class GasOptics:
                 (x1[:, :-1] + x1[:, 1:]) * (x2[:, :-1] + x2[:, 1:])
             tau += n_sq.abs().reshape(rows)[:, None] * \
                 spectral(table.cross_section)[None, :]
+
+        if bin_method:
+            # The coarse wings interpolate onto the fine grid after ALL
+            # absorbers (launch.c:211-218), each bin from its own triple.
+            bl = torch.arange(start_bin, start_bin + nbins,
+                              device=self.device) * ppb
+            bins_mod.interpolate_bins(
+                bins_tau, bl, self._block_w_rel(start_bin, nbins), ppb=ppb,
+                last_ppb=self.bins.last_ppb, do_interp=self.bins.do_interp,
+                do_last_interp=self.bins.do_last_interp,
+                num_wpoints=nbins * ppb, tau=tau_bins, bin0=start_bin,
+                last_bin=self.bins.n - 1)
+            del bins_tau
+            tau += tau_bins[:, :nw]
+            del tau_bins
 
         tau = tau.reshape(B, nlayers, nw)
         return tau if batched else tau[0]

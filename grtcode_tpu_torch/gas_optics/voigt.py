@@ -182,13 +182,26 @@ def voigt_line_shape(dv, lorentz_hwhm, doppler_hwhm):
       dv: offsets from the (pressure-shifted) line center [cm-1].
       lorentz_hwhm: Lorentz HWHM [cm-1].
       doppler_hwhm: Doppler HWHM including sqrt(ln2) [cm-1].
+
+    Every sample takes the region-0 (Lorentz-wing) value or the
+    pure-Lorentz limit; the full five-region ``humlicek_k`` runs only on
+    the samples inside the region-0 limit, with the same operations, so the
+    result is that of ``humlicek_k`` everywhere.
     """
     repwid = _div(constants.SQRT_LN2, doppler_hwhm)
     y = repwid * lorentz_hwhm
     xi = dv * repwid
+    xi, y, repwid = torch.broadcast_tensors(xi, y, repwid)
     # Pure-Lorentz limit for y >= 70.55.
+    lor = y >= 70.55
     lorentz = repwid * y / (_PI * (xi * xi + y * y))
     # Clamp y in the Humlicek path to avoid spurious NaNs in unused lanes.
     y_safe = torch.clamp(y, max=70.0)
-    k = constants.RSQRPI * repwid * humlicek_k(xi, y_safe)
-    return torch.where(y >= 70.55, lorentz, k)
+    abx = xi.abs()
+    scale = constants.RSQRPI * repwid
+    k = scale * ((y_safe * constants.RSQRPI) / (abx * abx + y_safe * y_safe))
+    k = torch.where(lor, lorentz, k)
+    core = (humlicek_region(abx, y_safe) != 0) & ~lor
+    if bool(core.any()):
+        k[core] = scale[core] * humlicek_k(xi[core], y_safe[core])
+    return k

@@ -5,8 +5,9 @@ grtcode_tpu/gas_optics/pallas_kernels.py).
 The kernel, ``csrc/voigt_line_sample.cu``, replaces the Pallas TPU kernel
 ``pallas_kernels.py::_voigt_kernel``.  It is compiled with ``nvcc`` for
 ``sm_90a`` at first use into ``build/grtcode_tpu_torch/`` (keyed on a
-hash of the source and flags) and called through a plain C entry point
-with ``ctypes``.
+hash of the flags, the source and the shared ``csrc/humlicek.cuh``; see
+:mod:`grtcode_tpu_torch.cuda_build`) and called through a plain C entry
+point with ``ctypes``.
 
 What bounds it on the card is f32 arithmetic and IEEE division: each
 (row, line) pair's ~20 input bytes are reused across up to 2*fsteps+1
@@ -27,28 +28,14 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
 
 import numpy as np
 import torch
 
+from ..cuda_build import build_library
 from .hitran import STRENGTH_SCALE
 from .lines import PreparedLines
 from .voigt import voigt_far_wing, voigt_line_shape
-
-_PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PACKAGE, "csrc", "voigt_line_sample.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE), "build",
-                         "grtcode_tpu_torch")
-# No fast-math; -fmad=false rounds every multiply and add on its own, as
-# the plain version's separate tensor ops do (with contraction on, the
-# kernel misses the 2e-6 parity bar; see the .cu header).
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
 
 _lib = None
 build_log = ""   # nvcc / ptxas output of the last build (registers, smem)
@@ -103,25 +90,7 @@ def build():
     global _lib, build_log
     if _lib is not None:
         return _lib
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build the line_sample Voigt kernel")
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    lib_path = os.path.join(BUILD_DIR,
-                            f"voigt_line_sample_{digest.hexdigest()[:16]}.so")
-    if not os.path.exists(lib_path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{lib_path}.{os.getpid()}.tmp"
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE],
-                              capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{build_log}")
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(lib_path)
+    lib, build_log = build_library("voigt_line_sample")
     fn = lib.voigt_line_sample
     fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int64] * 2
                    + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])

@@ -43,10 +43,13 @@ class SpectralGrid:
         """Largest wavenumber actually on the grid."""
         return self.w0 + (self.n - 1) * self.dw
 
-    def wavenumbers(self, device) -> torch.Tensor:
-        """All grid points as an f32 tensor, with the driver's f32
-        expression ``f32(w0) + f32(dw) * f32(index)``."""
-        idx = torch.arange(self.n, dtype=torch.int32,
+    def wavenumbers(self, device, start: int = 0,
+                    size: int | None = None) -> torch.Tensor:
+        """Grid points ``[start, start + size)`` (all of them by default;
+        a spectral block may run past the grid end) as an f32 tensor, with
+        the driver's f32 expression ``f32(w0) + f32(dw) * f32(index)``."""
+        size = self.n - start if size is None else size
+        idx = torch.arange(start, start + size, dtype=torch.int32,
                            device=device).to(torch.float32)
         w0 = torch.tensor(self.w0, dtype=torch.float32, device=device)
         dw = torch.tensor(self.dw, dtype=torch.float32, device=device)

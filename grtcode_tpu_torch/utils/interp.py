@@ -4,7 +4,8 @@
 keeps the reference's edge quirks: points ``<= x[0]`` take the left
 extrapolation rule, points ``> x[-1]`` extrapolate from the second-to-last
 sample.  ``trapezoid_integral`` is the host rule that normalizes the solar
-spectrum; ``trapezoid_uniform`` integrates fluxes on the device.
+spectrum; ``trapezoid_uniform`` integrates fluxes on the device, and
+``block_trapezoid_weights`` splits that integral over spectral blocks.
 """
 from __future__ import annotations
 
@@ -67,3 +68,15 @@ def trapezoid_uniform(y: torch.Tensor, dw: float):
     """Trapezoid integral over the last axis on a uniform grid with spacing
     ``dw`` (the driver's integrated-flux accumulation)."""
     return (0.5 * (y[..., :-1] + y[..., 1:])).sum(-1) * dw
+
+
+def block_trapezoid_weights(start: int, block: int, n_global: int, dw: float,
+                            device=None) -> torch.Tensor:
+    """Trapezoid weights of the spectral block [start, start + block): dw
+    inside the band, dw/2 at the two global band edges, 0 past the grid
+    end (the tail block's padding), so the per-block weighted sums add up
+    to the whole-band trapezoid."""
+    gidx = start + torch.arange(block, dtype=torch.int32, device=device)
+    valid = gidx < n_global
+    edge = (gidx == 0) | (gidx == n_global - 1)
+    return torch.where(valid, torch.where(edge, 0.5, 1.0), 0.0) * dw

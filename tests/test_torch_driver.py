@@ -1,11 +1,16 @@
 """The port's clear-sky aerosol-free radiation step as a whole.
 
 * ``examples.rfmip_like(smoke=True)`` builds exactly the catalogs, tables
-  and batch of ``bench.build(smoke=True)``;
+  and batch of ``bench.build(smoke=True)``, also with the bin method at
+  the production resolution (``lw_method="wavenumber_sweep"``,
+  ``lw_res=0.01``);
 * the port's ``RadiationDriver`` CSAF fluxes match the JAX driver's on that
   atmosphere, and a mixed day/night batch (which the JAX driver splits
   into lit and night buckets while the port masks the full batch) gives
   the lit column the same fluxes;
+* ``run(spectral_chunks=S)`` streams both bands through S blocks and
+  matches the port's unstreamed run and the JAX driver's streamed run, for
+  line_sample and wavenumber_sweep; ``block_trapezoid_weights`` matches;
 * the CSAF rows of the reference-C golden (tests/data/driver_golden.txt)
   match through the port's own file readers;
 * everything off the slice raises NotImplementedError;
@@ -26,13 +31,20 @@ from tools.goldens import driver_inputs  # noqa: E402
 
 from grtcode_tpu.framework.atmosphere import Atmosphere as JAtmosphere  # noqa: E402
 from grtcode_tpu.framework.driver import RadiationDriver as JDriver  # noqa: E402
+from grtcode_tpu.gas_optics.gas_optics import GasOptics as JGasOptics  # noqa: E402
+from grtcode_tpu.gas_optics.hitran import synthetic_catalog as jcatalog  # noqa: E402
+from grtcode_tpu.solvers.solar_flux import SolarFlux as JSolarFlux  # noqa: E402
+from grtcode_tpu.spectral import SpectralGrid as JGrid  # noqa: E402
+from grtcode_tpu.utils.interp import block_trapezoid_weights as jweights  # noqa: E402
 from grtcode_tpu_torch import examples  # noqa: E402
-from grtcode_tpu_torch.convert import atmosphere_from_jax, solar_from_jax  # noqa: E402
+from grtcode_tpu_torch.convert import (atmosphere_from_jax,  # noqa: E402
+                                       gas_optics_from_jax, solar_from_jax)
 from grtcode_tpu_torch.framework.atmosphere import Atmosphere  # noqa: E402
 from grtcode_tpu_torch.framework.driver import RadiationDriver  # noqa: E402
 from grtcode_tpu_torch.gas_optics.gas_optics import GasOptics  # noqa: E402
 from grtcode_tpu_torch.solvers.solar_flux import SolarFlux  # noqa: E402
 from grtcode_tpu_torch.spectral import SpectralGrid  # noqa: E402
+from grtcode_tpu_torch.utils.interp import block_trapezoid_weights  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(REPO, "tests", "data", "driver_golden.txt")
@@ -40,6 +52,9 @@ GOLDEN = os.path.join(REPO, "tests", "data", "driver_golden.txt")
 # (tests/test_driver_golden.py:40), relative per level with the golden
 # test's floor (1 % of the variable's largest magnitude).
 TOLERANCE = 1e-4
+# Streamed against unstreamed and against the JAX streamed run
+# (tests/test_framework.py:324-339).
+STREAM_RTOL, STREAM_ATOL = 2e-5, 1e-4
 FLUXES = ("rlu", "rld", "rsu", "rsd")
 
 
@@ -66,8 +81,9 @@ def _jax_atmosphere(atm):
                           for f in dataclasses.fields(Atmosphere)})
 
 
-def test_rfmip_like_equals_bench_build(smoke):
-    (jlw, jsw, jsol, jbatch, jB, jnl), (lw, sw, sol, batch, B, nl) = smoke
+def _assert_same_model(jax_model, port_model):
+    (jlw, jsw, jsol, jbatch, jB, jnl), (lw, sw, sol, batch, B, nl) = \
+        jax_model, port_model
     assert (B, nl) == (jB, jnl) == (4, 54)
     for key, val in jbatch.items():
         if isinstance(val, dict):
@@ -78,12 +94,16 @@ def test_rfmip_like_equals_bench_build(smoke):
             assert np.array_equal(batch[key], val), key
     for jg, g in ((jlw, lw), (jsw, sw)):
         assert g.grid.n == jg.grid.n and g.tile == jg.tile
+        assert g.method == jg.method
         assert list(g.molecules) == list(jg.molecules)
         for mol, gl in jg.molecules.items():
             for f in ("c0", "frac0", "vnn", "snn", "yair", "yself", "en",
                       "n", "d", "iso0"):
                 assert np.array_equal(getattr(g.molecules[mol], f),
                                       np.asarray(getattr(gl, f))), (mol, f)
+                assert np.array_equal(
+                    getattr(g._raw_bounds[mol], f),
+                    np.asarray(getattr(jg._raw_bounds[mol], f))), (mol, f)
             assert g.near_steps[mol] == jg.near_steps[mol]
             assert np.array_equal(g.chunk_ranges[mol].lo,
                                   jg.chunk_ranges[mol].lo)
@@ -103,6 +123,29 @@ def test_rfmip_like_equals_bench_build(smoke):
                           np.asarray(jsol.incident_flux))
     assert np.array_equal(solar_from_jax(jsol, "cpu").incident_flux.numpy(),
                           sol.incident_flux.numpy())
+
+
+def test_rfmip_like_equals_bench_build(smoke):
+    _assert_same_model(*smoke)
+
+
+def test_rfmip_like_bin_method_equals_bench_build():
+    """The production-resolution bin-method configuration, smoke-sized:
+    LW at 0.08 cm-1 (0.01 x 8), 3,125 bins of 13 points, the last one of
+    2 (so the last-bin interpolation switch is on the path)."""
+    model = dict(lw_method="wavenumber_sweep", lw_res=0.01)
+    jax_model = bench.build(smoke=True, **model)
+    port_model = examples.rfmip_like(smoke=True, device="cpu", **model)
+    _assert_same_model(jax_model, port_model)
+    jlw, lw = jax_model[0], port_model[0]
+    assert (lw.grid.n, lw.bins.ppb, lw.bins.n, lw.bins.last_ppb) == \
+        (jlw.grid.n, jlw.bins.ppb, jlw.bins.n, jlw.bins.last_ppb) == \
+        (40614, 13, 3125, 2)
+    for mol in jlw.molecules:
+        pr, jr = lw._get_bin_ranges(mol), jlw._get_bin_ranges(mol)
+        for f in ("local_lo", "local_cnt", "rem_lo", "rem_cnt_l",
+                  "rem_hi_start", "rem_cnt_r"):
+            assert np.array_equal(getattr(pr, f), getattr(jr, f)), (mol, f)
 
 
 @pytest.fixture(scope="module")
@@ -192,7 +235,6 @@ def tiny():
 @pytest.mark.parametrize("request_, item", [
     (dict(mesh=object()), "O6"),
     (dict(column_chunk=1), "O2"),
-    (dict(spectral_chunks=2), "O2"),
     (dict(integrated=False), "O2"),
     (dict(clean=False), "O2"),
     (dict(clear=False), "O3"),
@@ -218,6 +260,85 @@ def test_tiny_column_runs_and_validates_spectral_chunks(tiny):
     assert float(res["rld"][0, 0]) == 0.0 and float(res["rsd"][0, 0]) > 0
     with pytest.raises(ValueError, match="spectral_chunks"):
         driver.run(atm, spectral_chunks=0)
+
+
+@pytest.mark.parametrize("start,block,n,dw", [
+    (0, 64, 200, 0.1), (128, 64, 200, 0.1), (192, 64, 200, 0.1),
+    (0, 5, 5, 1.0), (33128 * 9, 33128, 324901, 0.01)])
+def test_block_trapezoid_weights_match_jax(start, block, n, dw):
+    got = block_trapezoid_weights(start, block, n, dw).numpy()
+    want = np.asarray(jweights(start, block, n, dw))
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+def _mini_model(lw_method):
+    """A small two-band model for the streaming tests, built for the JAX
+    package and converted: LW 100-400 cm-1 at 0.1 (3,001 points; for the
+    bin method 273 bins of 11, the last one of 9) with two molecules whose
+    lines reach past both band ends; SW 1,000-9,000 cm-1 at 4.0
+    (line_sample) with one molecule; 2 columns of 8 layers, grey-ish
+    surface spectra."""
+    def gas(grid, method, mols):
+        g = JGasOptics(grid, line_chunk=64, method=method, pallas="off")
+        for mol, seed in mols:
+            rng = np.random.default_rng(seed)
+            n = 150
+            vnn = np.sort(rng.uniform(grid.w0 - 15.0, grid.wn + 15.0, n))
+            g.add_catalog(jcatalog(
+                mol, vnn, 10.0 ** rng.uniform(-22.0, -19.0, n),
+                yair=rng.uniform(0.02, 0.1, n),
+                yself=rng.uniform(0.05, 0.4, n),
+                en=rng.uniform(0.0, 2000.0, n), n=rng.uniform(0.4, 0.8, n),
+                d=rng.uniform(-0.01, 0.01, n)))
+        return g
+
+    lw_grid, sw_grid = JGrid(100.0, 400.0, 0.1), JGrid(1000.0, 9000.0, 4.0)
+    jlw = gas(lw_grid, lw_method, ((1, 21), (2, 22)))
+    jsw = gas(sw_grid, "line_sample", ((1, 23),))
+    jsol = JSolarFlux.from_samples(
+        np.linspace(900.0, 9100.0, 64),
+        1.0 + 0.5 * np.sin(np.linspace(0.0, 3.0, 64)), sw_grid)
+    rng = np.random.default_rng(9)
+    B, nlev = 2, 9
+    p = np.linspace(0.05, 1013.0, nlev)[None, :] * np.ones((B, 1))
+    t = np.linspace(210.0, 290.0, nlev)[None, :] + rng.uniform(-4, 4,
+                                                               (B, nlev))
+    jatm = JAtmosphere(
+        level_pressure=p, level_temperature=t,
+        surface_temperature=t[:, -1] + 1.0,
+        ppmv={1: rng.uniform(10.0, 2e4, (B, nlev)),
+              2: np.full((B, nlev), 400.0)},
+        emissivity_grid=np.array([50.0, 500.0]),
+        emissivity=np.array([[0.95, 0.9], [1.0, 0.85]]),
+        cos_zenith=np.array([0.6, 0.25]),
+        total_solar_irradiance=np.array([1361.0, 1361.0]),
+        albedo_grid=np.array([500.0, 10000.0]),
+        albedo=np.array([[0.1, 0.3], [0.2, 0.05]]))
+    port = (gas_optics_from_jax(jlw, "cpu"), gas_optics_from_jax(jsw, "cpu"),
+            solar_from_jax(jsol, "cpu"))
+    return (jlw, jsw, jsol), port, jatm
+
+
+@pytest.mark.parametrize("lw_method", ["line_sample", "wavenumber_sweep"])
+def test_spectral_chunks_streaming_matches(lw_method):
+    jax_objs, port_objs, jatm = _mini_model(lw_method)
+    atm = atmosphere_from_jax(jatm)
+    driver = RadiationDriver(*port_objs)
+    full = driver.run(atm).tiers["csaf"]
+    streamed = driver.run(atm, spectral_chunks=3).tiers["csaf"]
+    want = JDriver(*jax_objs).run(jatm, integrated=True,
+                                  spectral_chunks=3).tiers["csaf"]
+    q = port_objs[0].block_quantum
+    assert q == (88 if lw_method == "wavenumber_sweep" else 64)
+    for var in FLUXES:
+        got = streamed[var].numpy()
+        assert got.shape == (2, 9) and np.isfinite(got).all()
+        np.testing.assert_allclose(got, full[var].numpy(), rtol=STREAM_RTOL,
+                                   atol=STREAM_ATOL, err_msg=var)
+        np.testing.assert_allclose(got, np.asarray(want[var]),
+                                   rtol=STREAM_RTOL, atol=STREAM_ATOL,
+                                   err_msg=var)
+    assert float(streamed["rlu"][0, 0]) > 0 and float(streamed["rsd"][0, 0])
 
 
 def test_night_batch_has_no_shortwave(tiny):

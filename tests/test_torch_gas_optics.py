@@ -193,10 +193,3 @@ def test_block_outside_the_grid_raises(gases, inputs):
             own.optical_depth(p, t, vmr, cfc_vmr=cfc, cia_vmr=cia,
                               block_start=start, block_size=64)
 
-
-def test_bin_methods_raise(inputs):
-    g = gas_optics.GasOptics(SpectralGrid(*GRID), method="line_sweep",
-                             device="cpu")
-    p, t, *_ = inputs[1]
-    with pytest.raises(NotImplementedError, match="O1"):
-        g.optical_depth(p, t, {})

@@ -1,6 +1,7 @@
-"""The port on an NVIDIA GPU: the CUDA line_sample kernel against its plain
-PyTorch version, and the clear-sky aerosol-free step on CUDA tensors
-against the same step on CPU tensors.
+"""The port on an NVIDIA GPU: the CUDA line_sample and bin kernels against
+their plain PyTorch versions, and the clear-sky aerosol-free step on CUDA
+tensors (line_sample, and the spectrally streamed bin-method step) against
+the same step on CPU tensors.
 
 Every test is marked ``gpu`` and skips without a GPU.  The file imports no
 JAX, so it also runs where JAX is not installed; ``tests/conftest.py``
@@ -14,6 +15,8 @@ import torch
 
 from grtcode_tpu_torch import constants, examples
 from grtcode_tpu_torch.framework.driver import RadiationDriver
+from grtcode_tpu_torch.gas_optics import bins as bm
+from grtcode_tpu_torch.gas_optics import bins_kernel as bk
 from grtcode_tpu_torch.gas_optics import lines, voigt_kernel as vk
 from grtcode_tpu_torch.gas_optics.hitran import synthetic_catalog
 from grtcode_tpu_torch.spectral import SpectralGrid
@@ -27,6 +30,9 @@ FSTEPS = 30
 NEAR = 4
 # The JAX kernel's own parity bar (tests/test_pallas.py:96).
 RTOL, ATOL = 2e-6, 1e-12
+# The JAX bin kernel's bar against accumulate_bins: rtol 2e-5, atol 2e-6
+# of the largest value (tests/test_bins_pallas.py:88-93).
+BIN_RTOL, BIN_ATOL = 2e-5, 2e-6
 # Integrated fluxes, relative per level with the driver-golden floor (1 %
 # of the variable's largest magnitude), the bar of
 # tests/test_driver_golden.py:40.
@@ -40,14 +46,12 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.fixture(scope="module")
-def molecule(cuda):
+def _molecule(device, w0=100.0, wn=180.0, n_lines=120, seed=5):
     """tests/test_pallas.py's setup (grid 100-180 cm-1 at 0.1, 120 lines,
-    3 x 6 rows), prepared on the card by the port."""
-    grid = SpectralGrid(100.0, 180.0, 0.1)
-    n_lines = 120
-    rng = np.random.default_rng(5)
-    vnn = np.sort(rng.uniform(90.0, 190.0, n_lines))
+    3 x 6 rows), prepared on ``device`` by the port."""
+    grid = SpectralGrid(w0, wn, 0.1)
+    rng = np.random.default_rng(seed)
+    vnn = np.sort(rng.uniform(w0 - 10.0, wn + 10.0, n_lines))
     cat = synthetic_catalog(
         1, vnn, rng.uniform(1e-22, 1e-19, n_lines),
         yair=rng.uniform(0.02, 0.1, n_lines),
@@ -63,7 +67,7 @@ def molecule(cuda):
     x = rng.uniform(1e-5, 1e-2, (B, nlev))
 
     def f32(a):
-        return torch.as_tensor(a, dtype=torch.float32, device=cuda)
+        return torch.as_tensor(a, dtype=torch.float32, device=device)
 
     p_atm = f32(p) * constants.MB_TO_ATM
     n_air = cg.number_densities(p_atm)
@@ -72,9 +76,15 @@ def molecule(cuda):
     rows = B * (nlev - 1)
     prep = lines.prepare(bound, grid, pavg.reshape(rows),
                          tavg.reshape(rows), psavg.reshape(rows))
+    return grid, bound, prep, ns.reshape(rows).contiguous()
+
+
+@pytest.fixture(scope="module")
+def molecule(cuda):
+    grid, bound, prep, ns = _molecule(cuda)
     ranges = vk.build_chunk_ranges(bound.c0, grid.n, FSTEPS, TILE, CH,
                                    shift_margin=2)
-    return grid, prep, ns.reshape(rows).contiguous(), ranges
+    return grid, prep, ns, ranges
 
 
 @pytest.mark.parametrize("start,nw", [(0, None), (4 * TILE, 4 * TILE),
@@ -124,21 +134,100 @@ def test_kernel_wrapper_raises_instead_of_falling_back(molecule):
     assert vk.voigt_line_sample_reference.launches == plain
 
 
-def _fluxes(device):
+@pytest.fixture(scope="module", params=["light", "heavy"])
+def bin_molecule(cuda, request):
+    """tests/test_bins_pallas.py's setups: the heavy molecule at 100-180
+    cm-1, and the light one at 30,000-30,060 cm-1 whose remote lines fall
+    inside Humlicek regions 1-4."""
+    if request.param == "heavy":
+        return _molecule(cuda)
+    return _molecule(cuda, w0=30000.0, wn=30060.0, n_lines=60, seed=11)
+
+
+def _bin_tables(grid, bound, mode):
+    bins = bm.create_spectral_bins(grid.n, grid.w0, grid.dw, 1.0)
+    return bins, bm.build_bin_ranges(bound, bins, mode=mode)
+
+
+@pytest.mark.parametrize("mode", ["bin_sweep", "line_sweep"])
+@pytest.mark.parametrize("start_bin,nbins", [(0, None), (8, 32), (40, 40)])
+def test_bin_kernel_matches_plain_version(bin_molecule, mode, start_bin,
+                                          nbins):
+    grid, bound, prep, ns = bin_molecule
+    bins, ranges = _bin_tables(grid, bound, mode)
+    kw = dict(start_bin=start_bin, nbins=nbins)
+    launches = bk.accumulate_bins_kernel.launches
+    fine, coarse = bk.accumulate_bins_kernel(prep, ns, ranges, bins, **kw)
+    again = bk.accumulate_bins_kernel(prep, ns, ranges, bins, **kw)
+    want_f, want_c = bm.accumulate_bins(prep, ns, ranges, bins, **kw)
+    torch.cuda.synchronize()
+    assert bk.accumulate_bins_kernel.launches == launches + 2
+    assert torch.equal(fine, again[0]) and torch.equal(coarse, again[1])
+    for got, want in ((fine, want_f), (coarse, want_c)):
+        want = want.cpu().numpy()
+        assert np.abs(want).max() > 0
+        np.testing.assert_allclose(got.cpu().numpy(), want, rtol=BIN_RTOL,
+                                   atol=BIN_ATOL * np.abs(want).max())
+
+
+def test_bin_kernel_adds_in_place(cuda):
+    grid, bound, prep, ns = _molecule(cuda)
+    bins, ranges = _bin_tables(grid, bound, "bin_sweep")
+    nbins = 16
+    fine0 = torch.ones((ns.shape[0], nbins * bins.ppb), device=cuda)
+    coarse0 = torch.full((ns.shape[0], nbins, bm.NIP), 2.0, device=cuda)
+    fine, coarse = bk.accumulate_bins_kernel(
+        prep, ns, ranges, bins, start_bin=8, nbins=nbins, tau0=fine0,
+        bins_tau0=coarse0)
+    alone = bk.accumulate_bins_kernel(prep, ns, ranges, bins, start_bin=8,
+                                      nbins=nbins)
+    torch.cuda.synchronize()
+    assert fine is fine0 and coarse is coarse0
+    np.testing.assert_allclose((fine - 1.0).cpu().numpy(),
+                               alone[0].cpu().numpy(), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose((coarse - 2.0).cpu().numpy(),
+                               alone[1].cpu().numpy(), rtol=1e-6, atol=1e-6)
+
+
+def test_bin_kernel_wrapper_raises_instead_of_falling_back(cuda):
+    grid, bound, prep, ns = _molecule(cuda)
+    bins, ranges = _bin_tables(grid, bound, "bin_sweep")
+    plain = bm.accumulate_bins.launches
+    with pytest.raises(ValueError, match="dtype"):
+        bk.accumulate_bins_kernel(prep, ns.double(), ranges, bins)
+    with pytest.raises(ValueError, match="shape"):
+        bk.accumulate_bins_kernel(
+            prep, ns, ranges, bins, nbins=4,
+            tau0=torch.zeros((ns.shape[0], 3), device=cuda))
+    assert bm.accumulate_bins.launches == plain
+
+
+def _fluxes(device, spectral_chunks=None, **model):
     lw, sw, solar, batch, _, _ = examples.rfmip_like(smoke=True,
-                                                     device=device)
-    res = RadiationDriver(lw, sw, solar).run(examples.atmosphere(batch))
+                                                     device=device, **model)
+    res = RadiationDriver(lw, sw, solar).run(examples.atmosphere(batch),
+                                             spectral_chunks=spectral_chunks)
     return {k: v.cpu().numpy() for k, v in res.tiers["csaf"].items()}
 
 
-def test_csaf_step_on_the_card_matches_the_cpu(cuda):
-    kernel, plain = vk.accumulate_voigt.launches, \
-        vk.voigt_line_sample_reference.launches
-    got = _fluxes(cuda)
+@pytest.mark.parametrize("case", ["line_sample", "streamed_bins"])
+def test_csaf_step_on_the_card_matches_the_cpu(cuda, case):
+    model, S = {}, None
+    if case == "streamed_bins":
+        model, S = dict(lw_method="wavenumber_sweep", lw_res=0.01), 3
+    k1, k2 = vk.accumulate_voigt.launches, bk.accumulate_bins_kernel.launches
+    plain = (vk.voigt_line_sample_reference.launches,
+             bm.accumulate_bins.launches)
+    got = _fluxes(cuda, S, **model)
     torch.cuda.synchronize()
-    assert vk.accumulate_voigt.launches - kernel == 11   # 7 LW + 4 SW
-    assert vk.voigt_line_sample_reference.launches == plain
-    want = _fluxes("cpu")
+    if case == "line_sample":                             # 7 LW + 4 SW
+        assert vk.accumulate_voigt.launches - k1 == 11
+    else:                                      # 7 LW and 4 SW per block
+        assert bk.accumulate_bins_kernel.launches - k2 == 7 * S
+        assert vk.accumulate_voigt.launches - k1 == 4 * S
+    assert (vk.voigt_line_sample_reference.launches,
+            bm.accumulate_bins.launches) == plain
+    want = _fluxes("cpu", S, **model)
     for var in ("rlu", "rld", "rsu", "rsd"):
         assert got[var].shape == want[var].shape == (4, 55)
         assert np.isfinite(got[var]).all()
