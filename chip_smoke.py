@@ -28,7 +28,10 @@ phases (one line each):
      timed steps, 11 kernel launches per step, physical checks; then the
      kernel against the plain version at the main path's shapes (1,728
      rows; LW O2 on the 0.1 cm-1 grid with fsteps 250, SW H2O on the
-     1.0 cm-1 grid with fsteps 25) at rtol 2e-6, atol 1e-12, timed;
+     1.0 cm-1 grid with fsteps 25) at rtol 2e-6, atol 1e-12, timed, and
+     LW O3 timed alone; each with its census (samples by Humlicek region,
+     (line, tile) pairs by zone) and its bound
+     (grtcode_tpu_torch.kernel_bench);
   6. K2 against its plain version on the card at rtol 2e-5 / atol 2e-6 x
      max: a synthetic molecule on 1-3250 cm-1 at 0.1 in both modes
      (bin_sweep, line_sweep), full band and a window at start_bin > 0; a
@@ -44,7 +47,7 @@ phases (one line each):
      step (each kernel's share, the line prep's, the idle share) and the
      step's host-device synchronisations by source line; then K2 against
      its plain version at the main path's shapes (1,728 rows, LW O2 at 0.01
-     over one full LW block), timed.
+     over one full LW block), timed, with its census and bound.
 
 Prints a kernels JSON line and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero without that line; there is no CPU
@@ -52,12 +55,15 @@ fallback.  Details go to chiprun_out/chip_smoke.json.
 """
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
 
 import numpy as np
+
+from grtcode_tpu_torch.kernel_bench import (band_prep, card_line,
+                                            census_line_sample, clocks,
+                                            cuda_ms)
 
 TOL_KERNEL = dict(rtol=2e-6, atol=1e-12)   # tests/test_pallas.py:96
 TOL_BIN_KERNEL = dict(rtol=2e-5, atol=2e-6)  # x max; test_bins_pallas.py:88
@@ -76,39 +82,6 @@ def check(cond, msg):
         raise AssertionError(msg)
 
 
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()
-    return out[0].strip()
-
-
-def clocks():
-    """SM clock, its maximum, memory clock, temperature and power draw as
-    nvidia-smi reads them now (to tell a slow card from slow code)."""
-    proc = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,clocks.mem,"
-         "temperature.gpu,power.draw", "--format=csv,noheader"],
-        capture_output=True, text=True)
-    if proc.returncode != 0:
-        return f"not readable (nvidia-smi exit {proc.returncode})"
-    return proc.stdout.strip().splitlines()[0].strip()
-
-
-def cuda_ms(fn, reps):
-    """Mean device time of ``fn()`` over ``reps`` runs (CUDA events)."""
-    import torch
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def share_of_bound(got, want, rtol, atol):
     """(max |got - want|, worst |got - want| / (atol + rtol |want|), where
     the worst is and the two values there): the allclose rule, <= 1
@@ -120,25 +93,6 @@ def share_of_bound(got, want, rtol, atol):
     where = (f"at {tuple(int(v) for v in idx)}: {float(got.flatten()[i]):.9e}"
              f" vs {float(want.flatten()[i]):.9e}")
     return float(err.max()), float(share.max()), where
-
-
-def region_census(prep, near, dw):
-    """Counts of near-core (row, line, offset) samples per Humlicek region
-    (0-4) and in the pure-Lorentz limit (5), by the plain version's
-    limits."""
-    import torch
-    from grtcode_tpu_torch import constants
-    from grtcode_tpu_torch.gas_optics.voigt import humlicek_region
-    valid = prep.strength > 0
-    repwid = constants.SQRT_LN2 / prep.doppler
-    y_true = repwid * prep.lorentz
-    y = y_true.clamp(max=70.0)
-    counts = torch.zeros(6, dtype=torch.int64, device=prep.strength.device)
-    for off in range(-near, near + 1):
-        abx = ((off - prep.center_frac) * dw * repwid).abs()
-        region = torch.where(y_true >= 70.55, 5, humlicek_region(abx, y))
-        counts += torch.bincount(region[valid], minlength=6)
-    return counts.tolist()
 
 
 def profile_step(step):
@@ -303,12 +257,15 @@ def phase_kernel_vs_plain(info, dev):
                          psavg.reshape(rows))
     ns = ns.reshape(rows).contiguous()
     near = gas.near_steps[1]
-    census = region_census(prep, near, grid.dw)
-    check(all(c > 0 for c in census),
-          f"not every Humlicek region / Lorentz exercised: {census}")
     kw = dict(dw=float(grid.dw), fsteps=gas._fsteps, near=near,
               num_global=grid.n)
     ranges = gas.chunk_ranges[1]
+    census = census_line_sample(prep, ranges, num_wpoints=grid.n,
+                                **kw)["samples"]
+    check(min(census["region0"], census["region1"], census["region2"],
+              census["region3"], census["region4a"] + census["region4b"],
+              census["lorentz"]) > 0,
+          f"not every Humlicek region / Lorentz exercised: {census}")
 
     def run(fn, start, nw, **extra):
         tau = torch.zeros((rows, nw), dtype=torch.float32, device=dev)
@@ -339,8 +296,7 @@ def phase_kernel_vs_plain(info, dev):
     print(f"phase 3 kernel vs plain: {rows} rows x {bound.num_lines} lines, "
           f"blocks {blocks}: max abs err {worst:.3e}, at most "
           f"{worst_share:.3f} of the bound rtol 2e-6 / atol 1e-12, "
-          f"bit-identical reruns, near-core samples per region "
-          f"0-4 / Lorentz {census}", flush=True)
+          f"bit-identical reruns, samples by class {census}", flush=True)
     return worst
 
 
@@ -454,6 +410,7 @@ def phase_full_width(info, dev, card):
     o3_ms = cuda_ms(lambda: vk.accumulate_voigt(
         prep, ns, lw_gas.chunk_ranges[3], tau0=tau, **kw), 2)
     o3_lines = prep.strength.shape[1]
+    o3 = k1_bound(prep, lw_gas.chunk_ranges[3], kw)
     del prep, tau
 
     info["phase5"] = dict(
@@ -461,7 +418,8 @@ def phase_full_width(info, dev, card):
         points_per_step=points, points_per_s=rate, peak_bytes=peak,
         launches=launches, B=B, nlayers=nlayers, clocks=under_load,
         nw=[lw_gas.grid.n, sw_gas.grid.n], lw_o2=o2, sw_h2o=sw_h2o,
-        o3_lines=o3_lines, o3_kernel_ms=o3_ms, profile=breakdown)
+        o3_lines=o3_lines, o3_kernel_ms=o3_ms, o3_bound=o3,
+        profile=breakdown)
     print(f"phase 5 full width ({card}): B={B} x {nlayers} layers x "
           f"({lw_gas.grid.n} + {sw_gas.grid.n}) points, {n_mol} kernel "
           f"launches/step, {ms:.1f} ms/step (steps "
@@ -469,35 +427,39 @@ def phase_full_width(info, dev, card):
           f"{under_load}), {rate:.4e} points/s, peak "
           f"{peak / 2 ** 30:.2f} GiB; kernel vs plain at {rows} rows within "
           f"rtol 2e-6 / atol 1e-12: {o2['summary']}; {sw_h2o['summary']}; "
-          f"LW O3 ({o3_lines} lines) kernel {o3_ms:.2f} ms; profiled step: "
+          f"LW O3 ({o3_lines} lines) kernel {o3_ms:.2f} ms, bound "
+          f"{o3['bound_ms']:.2f} ms by {o3['bound_by']} "
+          f"({o3['bound_ms'] / o3_ms:.1%} of it reached); census "
+          f"{census_summary(o3['census'])}; profiled step: "
           f"{breakdown['summary']}", flush=True)
     return launches, max(o2["max_abs_err"], sw_h2o["max_abs_err"]), o2
 
 
-def band_prep(gas, mol, batch, dev):
-    """(PreparedLines, column densities, kernel arguments) of molecule
-    ``mol`` of ``gas`` at the batch's B x nlayers rows, as
-    GasOptics.optical_depth makes them."""
-    import torch
-    from grtcode_tpu_torch import constants
-    from grtcode_tpu_torch.gas_optics import lines
-    from grtcode_tpu_torch.utils import curtis_godson as cg
+def k1_bound(prep, ranges, kw):
+    """K1's census on one molecule of a band and the bound it gives: the
+    inputs read once, tau read and written once, the operations per sample
+    by Humlicek region (grtcode_tpu_torch.kernel_bench.OPS)."""
+    from grtcode_tpu_torch.kernel_bench import (
+        bound_ms, census_line_sample, line_sample_lines_reached)
+    rows, n_lines = prep.strength.shape
+    cen = census_line_sample(prep, ranges, **kw)
+    reached = line_sample_lines_reached(ranges, 0, kw["num_wpoints"], n_lines)
+    nbytes = 4 * rows * (5 * reached + 1 + 2 * kw["num_wpoints"])
+    return dict(bound_ms(cen["samples"], nbytes), census=cen)
 
-    def f32(a):
-        return torch.as_tensor(a, dtype=torch.float32, device=dev)
 
-    p2 = f32(batch["p_lev"]) * constants.MB_TO_ATM
-    pavg, tavg = cg.layer_pressures_temperatures(p2, f32(batch["t_lev"]))
-    psavg, ns = cg.partial_pressures_and_densities(
-        p2, f32(batch["vmr"][mol] * 1e-6), cg.number_densities(p2))
-    rows = pavg.numel()
-    prep = lines.prepare(gas.molecules[mol], gas.grid, pavg.reshape(rows),
-                         tavg.reshape(rows), psavg.reshape(rows),
-                         tips=gas.tips)
-    kw = dict(num_wpoints=gas.grid.n, dw=float(gas.grid.dw),
-              fsteps=gas._fsteps, near=gas.near_steps[mol],
-              num_global=gas.grid.n)
-    return prep, ns.reshape(rows).contiguous(), kw
+def census_summary(cen):
+    """One line of a census: samples by class, zones, diverging warps."""
+    samples = cen.get("samples") or cen["fine_samples"]
+    parts = [", ".join(f"{k} {v:.4g}" for k, v in samples.items() if v)]
+    if "zone_line_tiles" in cen:
+        parts.append("(line, tile) x rows by zone " + ", ".join(
+            f"{k} {v:.4g}" for k, v in cen["zone_line_tiles"].items()))
+    else:
+        parts.append(f"coarse samples {cen['coarse_total']:.4g}")
+    parts.append(f"(row, warp, line) triples with diverging lanes in a "
+                 f"one-output-per-thread walk {cen['diverging_warp_lines']:.4g}")
+    return "; ".join(parts)
 
 
 def full_rows_vs_plain(gas, mol, batch, dev, kernel_reps, plain_reps):
@@ -535,13 +497,17 @@ def full_rows_vs_plain(gas, mol, batch, dev, kernel_reps, plain_reps):
     plain_ms.append(cuda_ms(lambda: vk.voigt_line_sample_reference(
         prep, ns, tau0=tau, **kw), plain_reps))
     k_ms, p_ms = float(np.mean(kernel_ms)), float(np.mean(plain_ms))
+    bound = k1_bound(prep, ranges, kw)
     return dict(
         rows=rows, lines=n_lines, nw=kw["num_wpoints"], fsteps=kw["fsteps"],
         near=kw["near"], max_abs_err=err, worst_share=share,
         kernel_ms=kernel_ms, plain_ms=plain_ms, ms=k_ms, plain_ms_mean=p_ms,
+        **bound,
         summary=(f"{label} max abs err {err:.3e} ({share:.3f} of the "
-                 f"bound), kernel {k_ms:.2f} ms vs plain "
-                 f"{p_ms:.2f} ms"))
+                 f"allclose bound), kernel {k_ms:.2f} ms vs plain "
+                 f"{p_ms:.2f} ms, bound {bound['bound_ms']:.3f} ms by "
+                 f"{bound['bound_by']} ({bound['bound_ms'] / k_ms:.1%} of "
+                 f"it reached); census {census_summary(bound['census'])}"))
 
 
 def lcg_lines(n_lines=40):
@@ -840,6 +806,8 @@ def bin_full_rows_vs_plain(gas, mol, batch, dev, nbins, kernel_reps,
     import torch
     from grtcode_tpu_torch.gas_optics import bins as bm
     from grtcode_tpu_torch.gas_optics import bins_kernel as bk
+    from grtcode_tpu_torch.kernel_bench import (bound_ms, census_bins,
+                                                lines_reached)
 
     prep, ns, _ = band_prep(gas, mol, batch, dev)
     rows, n_lines = prep.strength.shape
@@ -880,13 +848,26 @@ def bin_full_rows_vs_plain(gas, mol, batch, dev, nbins, kernel_reps,
     kernel_ms = [cuda_ms(lambda: kernel(buf), kernel_reps) for _ in range(2)]
     plain_ms.append(cuda_ms(lambda: plain(buf), plain_reps))
     k_ms, p_ms = float(np.mean(kernel_ms)), float(np.mean(plain_ms))
+    # The bound: inputs read once, both buffers read and written once, the
+    # fine samples by class and every coarse sample at region 0's count
+    # (the remote lines lie >= 1 cm-1 away: |x| >> 123 at these widths).
+    cen = census_bins(prep, ranges, gas.bins, **kw)
+    samples = dict(cen["fine_samples"])
+    samples["region0"] += cen["coarse_total"]
+    reached = lines_reached(ranges, 0, nbins)
+    nbytes = 4 * rows * (5 * reached + 1 + 2 * nbins * (gas.bins.ppb
+                                                        + bm.NIP))
+    bound = dict(bound_ms(samples, nbytes), census=cen)
     return dict(
         rows=rows, lines=n_lines, nbins=nbins, ppb=gas.bins.ppb,
         max_abs_err=worst, worst_share=worst_share, kernel_ms=kernel_ms,
-        plain_ms=plain_ms, ms=k_ms, plain_ms_mean=p_ms,
+        plain_ms=plain_ms, ms=k_ms, plain_ms_mean=p_ms, **bound,
         summary=(f"{label} max abs err {worst:.3e} (at most "
-                 f"{worst_share:.4f} of the bound), kernel {k_ms:.2f} ms vs "
-                 f"plain {p_ms:.2f} ms"))
+                 f"{worst_share:.4f} of the allclose bound), kernel "
+                 f"{k_ms:.2f} ms vs plain {p_ms:.2f} ms, bound "
+                 f"{bound['bound_ms']:.3f} ms by {bound['bound_by']} "
+                 f"({bound['bound_ms'] / k_ms:.1%} of it reached); census "
+                 f"{census_summary(cen)}"))
 
 
 def main():
@@ -919,16 +900,21 @@ def main():
         json.dump(info, f, indent=1, default=str)
     # K1 runs on both paths (all 11 molecules at 0.1, the 4 SW molecules
     # in each block of the streamed one); its launches are both counts.
+    # No PyTorch call computes a Voigt sum over a line list: library_ms is
+    # null for both.
     print(json.dumps({"kernels": [
         {"name": "voigt_line_sample", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES,
          "launches": k1_launches + launches8["voigt_line_sample"],
          "max_abs_err": max(err3, err5), "ms": o2["ms"],
-         "plain_ms": o2["plain_ms_mean"]},
+         "plain_ms": o2["plain_ms_mean"], "bound_ms": o2["bound_ms"],
+         "bound_by": o2["bound_by"], "library_ms": None},
         {"name": "voigt_bins", "route": "cuda", "source": SOURCE_K2,
          "replaces": REPLACES_K2, "launches": launches8["voigt_bins"],
          "max_abs_err": max(err6, o2_bins["max_abs_err"]),
-         "ms": o2_bins["ms"], "plain_ms": o2_bins["plain_ms_mean"]}]}))
+         "ms": o2_bins["ms"], "plain_ms": o2_bins["plain_ms_mean"],
+         "bound_ms": o2_bins["bound_ms"], "bound_by": o2_bins["bound_by"],
+         "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -26,6 +26,8 @@ from .spectral import SpectralGrid
 
 _LINE_ARRAYS = ("c0", "frac0", "vnn", "snn", "yair", "yself", "en", "n", "d",
                 "iso0")
+_CHUNK_TABLES = ("lo", "nchunks", "cnl", "cnh", "m0l", "m0h", "fll", "flh",
+                 "frl", "frh")
 
 
 def _f32(a, device):
@@ -66,8 +68,10 @@ def gas_optics_from_jax(gas, device) -> GasOptics:
         port.near_steps[mol_id] = int(gas.near_steps[mol_id])
         cr = gas.chunk_ranges[mol_id]
         port.chunk_ranges[mol_id] = ChunkRanges(
-            np.asarray(cr.lo), np.asarray(cr.nchunks), tile=port.tile,
-            ch=port.ch)
+            *(np.asarray(getattr(cr, f)) for f in _CHUNK_TABLES),
+            tile=port.tile, ch=port.ch, hw=int(gas.near_hw[mol_id]),
+            shift_margin=lines_mod.shift_margin(port.molecules[mol_id],
+                                                port.grid.dw))
     if gas.h2o_ctm is not None:
         c = gas.h2o_ctm
         port.h2o_ctm = WaterVaporContinuum(

@@ -11,25 +11,37 @@
 // near window is sized so |x| >= 13 outside it); the near core uses the
 // full five-region RFM scheme; lines with y >= 70.55 are pure Lorentz.
 //
-// Design.  Each thread owns one (row, grid point) output and sums the
-// lines into a register in line-index order, then adds once into tau (in
-// place).  No atomics, so two runs are bit-identical.  A block covers a
-// spectral tile of `tile` points and a strip of rows; it walks the
-// contiguous range of center-sorted lines that can reach its tile (host
-// table built with searchsorted, as build_chunk_ranges does for the TPU),
-// in chunks of kChunk lines.  For each chunk the block computes the
-// per-(row, line) factors once into shared memory; every thread of a
-// warp then reads the same factors (one row per warp), a broadcast.
+// What bounds it on the card: f32 arithmetic and the IEEE division of
+// every (row, line, point) term.  Each (row, line) pair's ~20 input bytes
+// serve up to 2*fsteps+1 points (501 at 0.1 cm-1), so device memory is not
+// the limit.  The design keeps each term to as few instructions around its
+// one division as the rounding allows:
 //
-// What bounds it on the card: f32 arithmetic and IEEE division.  Each
-// (row, line) pair's ~20 input bytes are reused across up to 2*fsteps+1
-// (501 at 0.1 cm-1) points, so device memory is not the limit; every
-// (row, point, line) pair costs ~20 f32 operations and one division in
-// the far wing.  The design keeps the far-wing path to one rational with a
-// single division, computes the ~300-operation five-region evaluation only
-// where a thread's own point is in the near core (a per-thread branch,
-// not a computed-and-selected lane), and hoists every point-independent
-// factor into shared memory.
+//   * A block covers a spectral tile of `tile` points and a strip of rows;
+//     each thread owns kPoints consecutive points of one row and keeps
+//     their sums in registers, so a line's factors, read from shared
+//     memory once, serve kPoints terms.
+//   * The block walks the center-sorted lines that can reach its tile in
+//     chunks of kChunk; per chunk it computes the per-(row, line) factors
+//     once into shared memory (one row per warp: the reads broadcast).
+//   * Zones (host tables, build_chunk_ranges, as the TPU kernel's): the
+//     lines split into runs by their distance from the tile.  Interior
+//     lines cover the whole tile, lie beyond the region-0 half-width and
+//     cannot shift off the grid: their term is num0 / (x^2 + y^2) with no
+//     window, near, validity or region test.  Edge lines keep only the
+//     window test.  Core-adjacent lines keep every test.  Every zone
+//     computes the bits the full path would: it only drops tests whose
+//     outcome the tables prove.
+//   * Near core: for the chunks whose lines can have a near-core sample in
+//     the tile, the block first evaluates every such (row, line, offset)
+//     sample, one (row, line) per thread with its Humlicek coefficients in
+//     registers and the lanes of a warp at the same offset of 32 lines,
+//     into shared memory.  The point loop then reads the value instead of
+//     branching into the five-region evaluation for one lane of a warp.
+//
+// Every output sums its lines in line-index order into a register and adds
+// once into tau (in place): no atomics, so two runs are bit-identical, and
+// the result is bit-identical to the one-path kernel this design replaced.
 //
 // Rounding.  x, y and every Humlicek region limit are computed with the
 // same operations, in the same order, as the plain PyTorch version
@@ -57,146 +69,291 @@ namespace {
 using namespace grtcode;
 
 constexpr int kChunk = 32;         // lines per shared-memory chunk
-constexpr int kMaxRows = 16;       // rows per block
+constexpr int kStride = kChunk + 1;  // factor row stride (bank offset)
+constexpr int kPoints = 4;         // consecutive points per thread
+constexpr int kThreads = 256;      // threads per block
 constexpr int kInvalid = -(1 << 30);  // cidx of a line that adds nothing
+constexpr int kZoneCols = 10;      // per-tile table columns (see below)
+constexpr size_t kMaxSmem = 227 * 1024;
 
 constexpr float kRsqrpiSq = (float)(0.56418958 * 0.56418958);
 
-// Per-(row, line) factors, 48 bytes: three 16-byte shared-memory loads.
+// Per-(row, line) factors, 48 bytes.  The interior path reads the first
+// two 16-byte words only.
 struct __align__(16) LineFactors {
   int cidx;      // per-row rounded center, kInvalid if the line is out
   float frac;    // fractional center offset [grid points]
   float repwid;  // sqrt(ln2) / alpha_d
   float num0;    // region-0 numerator y / pi (Lorentz: repwid y / pi)
   float yq;      // y^2 (Lorentz: unclamped y^2)
+  float sns;     // S n / 1e20
   float xlim0;   // region-0 bound on x^2 (Lorentz: -1, always region 0)
   float a0;      // y^2 + 1/2
   float d0;      // a0^2
   float d2;      // 2 y^2 - 1
   float y;       // y clamped to 70
-  float sns;     // S n / 1e20
   float kfac;    // sqrt(1/pi) repwid
 };
 
-__global__ void voigt_line_sample_kernel(
+enum Zone { kEdge = 0, kInterior = 1, kCore = 2 };
+
+__device__ __forceinline__ float4 word(const LineFactors& f, int i) {
+  return reinterpret_cast<const float4*>(&f)[i];
+}
+
+__device__ __forceinline__ LineFactors line_factors(
+    const int* center_idx, const float* center_frac, const float* strength,
+    const float* lorentz, const float* doppler, const float* ns, int64_t fr,
+    int l, int64_t rows, int hi, int64_t num_lines, int num_global) {
+  LineFactors f;
+  f.cidx = kInvalid;
+  f.frac = 0.0f;
+  f.repwid = 0.0f;
+  f.num0 = 0.0f;
+  f.yq = 1.0f;
+  f.sns = 0.0f;
+  f.xlim0 = -1.0f;
+  f.a0 = 1.0f;
+  f.d0 = 1.0f;
+  f.d2 = 1.0f;
+  f.y = 0.0f;
+  f.kfac = 0.0f;
+  if (fr < rows && l < hi) {
+    const int64_t off = fr * num_lines + l;
+    const int cidx = center_idx[off];
+    if (cidx >= 0 && cidx < num_global) {
+      const float sns = strength[off] * (ns[fr] / kStrengthScale);
+      const float repwid = kSqrtLn2 / doppler[off];
+      const float y_true = repwid * lorentz[off];
+      const bool lor = y_true >= 70.55f;
+      const float y = fminf(y_true, 70.0f);
+      const float yq = y * y;
+      f.cidx = cidx;
+      f.frac = center_frac[off];
+      f.repwid = repwid;
+      f.num0 = lor ? repwid * y_true / kPi : (kRsqrpiSq * repwid) * y;
+      f.yq = lor ? y_true * y_true : yq;
+      f.xlim0 = lor ? -1.0f : xlim0_sq(y);
+      f.a0 = yq + 0.5f;
+      f.d0 = f.a0 * f.a0;
+      f.d2 = yq + yq - 1.0f;
+      f.y = y;
+      f.sns = sns;
+      f.kfac = kRsqrpi * repwid;
+    }
+  }
+  return f;
+}
+
+// zones: (num_tiles, kZoneCols) int32 line-index bounds per tile:
+//   lo, hi            every line that can reach the tile
+//   near_lo, near_hi  lines that can have a near-core sample in the tile
+//   core_lo, core_hi  core-adjacent lines (every test kept)
+//   left_lo, left_hi, right_lo, right_hi   interior lines
+// Lines of [lo, hi) in none of the last three ranges are edge lines.
+__global__ void __launch_bounds__(kThreads) voigt_line_sample_kernel(
     const int* __restrict__ center_idx, const float* __restrict__ center_frac,
     const float* __restrict__ strength, const float* __restrict__ lorentz,
     const float* __restrict__ doppler, const float* __restrict__ ns,
-    const int* __restrict__ tile_lo, const int* __restrict__ tile_hi,
-    float* __restrict__ tau, int64_t rows, int64_t num_lines, int start,
-    int num_wpoints, int num_global, int fsteps, int near, int tile,
-    int first_tile, int num_tiles, float dw) {
-  extern __shared__ LineFactors factors[];  // [blockDim.y][kChunk]
+    const int* __restrict__ zones, float* __restrict__ tau, int64_t rows,
+    int64_t num_lines, int start, int num_wpoints, int num_global, int fsteps,
+    int near, int tile, int first_tile, int num_tiles, float dw) {
+  extern __shared__ float4 smem[];
+  __shared__ int z[kZoneCols];      // this tile's row of the zone table
+  const int nrows = blockDim.y;                         // rows per block
+  LineFactors* factors = reinterpret_cast<LineFactors*>(smem);
+  const int width = 2 * near + 1;                       // near-core offsets
+  float* nearval = reinterpret_cast<float*>(factors + nrows * kStride);
 
   const int px = threadIdx.x;
   const int ry = threadIdx.y;
-  const int nthreads = blockDim.x * blockDim.y;
+  const int nthreads = blockDim.x * nrows;
   const int tid = ry * blockDim.x + px;
-  const int64_t row0 = (int64_t)blockIdx.x * blockDim.y;
-  const int t = first_tile + (int)blockIdx.y;  // global tile index
-  const int local = (int)blockIdx.y * tile + px;  // block-local point
-  const int g = start + local;                    // global grid point
+  const int64_t row0 = (int64_t)blockIdx.x * nrows;
   const int64_t row = row0 + ry;
-  const bool own = row < rows && px < tile && local < num_wpoints &&
-                   g < num_global;
+  const int t = first_tile + (int)blockIdx.y;           // global tile index
+  const int tile0 = (int)blockIdx.y * tile;             // block-local start
+  const int gt0 = start + tile0;                        // its global point
+  const int l0 = tile0 + px * kPoints;                  // this thread's
+  const int g0 = start + l0;                            //   first point
 
-  int lo = 0, hi = 0;
-  if (t < num_tiles) {
-    lo = tile_lo[t];
-    hi = (int)min((int64_t)tile_hi[t], num_lines);
+  if (tid < kZoneCols) {
+    z[tid] = (t < num_tiles) ? zones[(int64_t)t * kZoneCols + tid] : 0;
   }
+  __syncthreads();
+  const int lo = z[0];
+  const int hi = (int)min((int64_t)z[1], num_lines);
+  const int near_lo = z[2], near_hi = z[3];
 
-  float acc = 0.0f;
+  float acc[kPoints];
+#pragma unroll
+  for (int p = 0; p < kPoints; ++p) acc[p] = 0.0f;
+
   for (int c0 = lo; c0 < hi; c0 += kChunk) {
-    // Per-(row, line) factors for this chunk, computed once per block.
-    for (int i = tid; i < (int)blockDim.y * kChunk; i += nthreads) {
+    const int n = min(kChunk, hi - c0);
+    // 1. Per-(row, line) factors of this chunk, once per block.
+    for (int i = tid; i < nrows * kChunk; i += nthreads) {
       const int r = i / kChunk;
       const int k = i - r * kChunk;
-      const int64_t fr = row0 + r;
-      const int l = c0 + k;
-      LineFactors f;
-      f.cidx = kInvalid;
-      if (fr < rows && l < hi) {
-        const int64_t off = fr * num_lines + l;
-        const int cidx = center_idx[off];
-        if (cidx >= 0 && cidx < num_global) {
-          const float sns = strength[off] * (ns[fr] / kStrengthScale);
-          const float repwid = kSqrtLn2 / doppler[off];
-          const float y_true = repwid * lorentz[off];
-          const bool lor = y_true >= 70.55f;
-          const float y = fminf(y_true, 70.0f);
-          const float yq = y * y;
-          f.cidx = cidx;
-          f.frac = center_frac[off];
-          f.repwid = repwid;
-          f.num0 = lor ? repwid * y_true / kPi : (kRsqrpiSq * repwid) * y;
-          f.yq = lor ? y_true * y_true : yq;
-          f.xlim0 = lor ? -1.0f : xlim0_sq(y);
-          f.a0 = yq + 0.5f;
-          f.d0 = f.a0 * f.a0;
-          f.d2 = yq + yq - 1.0f;
-          f.y = y;
-          f.sns = sns;
-          f.kfac = kRsqrpi * repwid;
-        }
-      }
-      factors[i] = f;
+      factors[r * kStride + k] =
+          line_factors(center_idx, center_frac, strength, lorentz, doppler,
+                       ns, row0 + r, c0 + k, rows, hi, num_lines, num_global);
     }
     __syncthreads();
 
-    if (own) {
-      const LineFactors* fr = factors + ry * kChunk;
-      const int n = min(kChunk, hi - c0);
-      for (int j = 0; j < n; ++j) {
-        const LineFactors f = fr[j];
-        const int delta = g - f.cidx;
-        const int adelta = abs(delta);
-        if (adelta > fsteps) continue;
-        const float xi = (((float)delta - f.frac) * dw) * f.repwid;
-        const float xq = xi * xi;
-        float k;
-        if (adelta <= near && f.xlim0 >= 0.0f) {
-          // Near core: the full five-region scheme.
-          k = f.kfac * humlicek_k(xi, f.y);
-        } else {
-          // Far wing (or a pure-Lorentz line): one rational.
-          const bool reg0 = xq >= f.xlim0;
-          const float num = reg0 ? f.num0 : f.num0 * (f.a0 + xq);
-          const float den = reg0 ? xq + f.yq : f.d0 + xq * (f.d2 + xq);
-          k = num / den;
+    // 2. Near-core samples that fall in the tile: one (row, line) per
+    // thread, its coefficients in registers; the lanes of a warp take the
+    // same offset of neighbouring lines.
+    const int nlo = max(c0, near_lo), nhi = min(c0 + n, near_hi);
+    if (nlo < nhi) {
+      for (int i = tid; i < nrows * kChunk; i += nthreads) {
+        const int r = i / kChunk;
+        const int k = i - r * kChunk;
+        const int l = c0 + k;
+        const LineFactors& f = factors[r * kStride + k];
+        if (l < nlo || l >= nhi || f.xlim0 < 0.0f) continue;  // Lorentz too
+        const int olo = max(-near, gt0 - f.cidx);
+        const int ohi = min(near, gt0 + tile - 1 - f.cidx);
+        if (olo > ohi) continue;
+        const HumlicekCoeffs hc = humlicek_coeffs(f.y);
+        float* out = nearval + (r * kChunk + k) * width + near;
+        for (int o = olo; o <= ohi; ++o) {
+          const float xi = (((float)o - f.frac) * dw) * f.repwid;
+          out[o] = f.kfac * humlicek_k(xi, hc);
         }
-        acc += f.sns * k;
+      }
+      __syncthreads();
+    }
+
+    // 3. The thread's points, run by run of one zone, in line order.
+    if (row < rows) {
+      const LineFactors* fr = factors + ry * kStride;
+      const float* nv = nearval + ry * kChunk * width + near;
+      int j = 0;
+      while (j < n) {
+        const int l = c0 + j;
+        // The zone of line l (core first) and the end of its run: the
+        // next table bound past l.
+        const int zone = (l >= z[4] && l < z[5]) ? kCore
+                         : ((l >= z[6] && l < z[7]) ||
+                            (l >= z[8] && l < z[9])) ? kInterior : kEdge;
+        int end = c0 + n;
+#pragma unroll
+        for (int i = 4; i < kZoneCols; ++i) {
+          if (z[i] > l && z[i] < end) end = z[i];
+        }
+        const int je = end - c0;
+        if (zone == kInterior) {
+          // Window, validity, near core and region 0 all hold.
+          for (; j < je; ++j) {
+            const float4 a = word(fr[j], 0);   // cidx frac repwid num0
+            const float4 b = word(fr[j], 1);   // yq sns xlim0 a0
+            const float base = (float)(g0 - __float_as_int(a.x));
+#pragma unroll
+            for (int p = 0; p < kPoints; ++p) {
+              const float xi = (((base + (float)p) - a.y) * dw) * a.z;
+              const float xq = xi * xi;
+              acc[p] += b.y * div_rn(a.w, xq + b.x);
+            }
+          }
+        } else if (zone == kEdge) {
+          // Beyond the near core and region 0: the window test only (it
+          // also drops lines off the grid).
+          for (; j < je; ++j) {
+            const float4 a = word(fr[j], 0);
+            const float4 b = word(fr[j], 1);
+            const int d0 = g0 - __float_as_int(a.x);
+#pragma unroll
+            for (int p = 0; p < kPoints; ++p) {
+              const int delta = d0 + p;
+              if (abs(delta) > fsteps) continue;
+              const float xi = (((float)delta - a.y) * dw) * a.z;
+              const float xq = xi * xi;
+              acc[p] += b.y * div_rn(a.w, xq + b.x);
+            }
+          }
+        } else {
+          for (; j < je; ++j) {
+            const float4 a = word(fr[j], 0);
+            const float4 b = word(fr[j], 1);
+            const float4 c = word(fr[j], 2);   // d0 d2 y kfac
+            const int d0 = g0 - __float_as_int(a.x);
+#pragma unroll
+            for (int p = 0; p < kPoints; ++p) {
+              const int delta = d0 + p;
+              const int adelta = abs(delta);
+              if (adelta > fsteps) continue;
+              float k;
+              if (adelta <= near && b.z >= 0.0f) {
+                k = nv[j * width + delta];     // near core, from step 2
+              } else {
+                // Far wing (or a pure-Lorentz line): one rational.
+                const float xi = (((float)delta - a.y) * dw) * a.z;
+                const float xq = xi * xi;
+                const bool reg0 = xq >= b.z;
+                const float num = reg0 ? a.w : a.w * (b.w + xq);
+                const float den = reg0 ? xq + b.x : c.x + xq * (c.y + xq);
+                k = div_rn(num, den);
+              }
+              acc[p] += b.y * k;
+            }
+          }
+        }
       }
     }
     __syncthreads();
   }
-  if (own) {
-    tau[row * num_wpoints + local] += acc;
+  if (row < rows) {
+#pragma unroll
+    for (int p = 0; p < kPoints; ++p) {
+      const int local = l0 + p;
+      if (local < tile0 + tile && local < num_wpoints &&
+          start + local < num_global) {
+        tau[row * num_wpoints + local] += acc[p];
+      }
+    }
   }
 }
 
 }  // namespace
 
+// Launches the kernel on `stream`.  Returns a cudaError_t (0: launched).
 extern "C" int voigt_line_sample(
     const void* center_idx, const void* center_frac, const void* strength,
     const void* lorentz, const void* doppler, const void* ns,
-    const void* tile_lo, const void* tile_hi, void* tau, int64_t rows,
-    int64_t num_lines, int start, int num_wpoints, int num_global, int fsteps,
-    int near, int tile, int num_tiles, float dw, void* stream) {
+    const void* zones, void* tau, int64_t rows, int64_t num_lines, int start,
+    int num_wpoints, int num_global, int fsteps, int near, int tile,
+    int num_tiles, float dw, void* stream) {
   if (rows <= 0 || num_wpoints <= 0) return 0;
-  int rows_per_block = 256 / tile;
-  if (rows_per_block > kMaxRows) rows_per_block = kMaxRows;
-  if (rows_per_block < 1) rows_per_block = 1;
-  const dim3 block(tile, rows_per_block);
+  if (tile <= 0 || start % tile != 0 || near < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int bx = (tile + kPoints - 1) / kPoints;
+  if (bx > kThreads) return (int)cudaErrorInvalidValue;
+  int rows_per_block = kThreads / bx;
+  const int width = 2 * near + 1;
+  auto smem_bytes = [&](int r) {
+    return sizeof(LineFactors) * kStride * r +
+           sizeof(float) * kChunk * width * r;
+  };
+  while (rows_per_block > 1 && smem_bytes(rows_per_block) > kMaxSmem) {
+    rows_per_block /= 2;
+  }
+  const size_t smem = smem_bytes(rows_per_block);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      voigt_line_sample_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 block(bx, rows_per_block);
   const int64_t row_blocks = (rows + rows_per_block - 1) / rows_per_block;
   const int block_tiles = (num_wpoints + tile - 1) / tile;
   const dim3 grid((unsigned)row_blocks, (unsigned)block_tiles);
-  const size_t smem = sizeof(LineFactors) * kChunk * rows_per_block;
   voigt_line_sample_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
       (const int*)center_idx, (const float*)center_frac,
       (const float*)strength, (const float*)lorentz, (const float*)doppler,
-      (const float*)ns, (const int*)tile_lo, (const int*)tile_hi,
-      (float*)tau, rows, num_lines, start, num_wpoints, num_global, fsteps,
-      near, tile, start / tile, num_tiles, dw);
+      (const float*)ns, (const int*)zones, (float*)tau, rows, num_lines,
+      start, num_wpoints, num_global, fsteps, near, tile, start / tile,
+      num_tiles, dw);
   return (int)cudaGetLastError();
 }

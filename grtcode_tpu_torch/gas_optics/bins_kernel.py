@@ -10,12 +10,15 @@ It is compiled with ``nvcc`` for ``sm_90a`` at first use (see
 point with ``ctypes``.
 
 What bounds it on the card is f32 arithmetic and IEEE division, as for the
-line_sample kernel; the design (one output per thread, per-(row, line)
-factors in shared memory, the five-region Humlicek only where a sample
-needs it) is described at the top of the ``.cu`` file.  The TPU design's
-tables beyond the per-bin ranges (chunk-aligned group starts, interior
-chunk split, ``coarse_region0``, ``lpad``) served its DMA pipeline and
-pairwise-rational path; this kernel does not use them.
+line_sample kernel; the design (coarse blocks with one (row, bin) per
+thread walking exactly its bin's remote ranges, fine blocks of one bin
+with four points per lane, per-(row, line) factors in shared memory, and
+Humlicek coefficients kept only for the lines with a sample inside the
+region-0 limit) is described at the top of the ``.cu`` file.  The TPU
+design's tables beyond the per-bin ranges (chunk-aligned group starts,
+interior chunk split, ``coarse_region0``, ``lpad``) served its DMA
+pipeline and pairwise-rational path; this kernel decides region 0 per
+(row, line, bin) on the card instead and uses none of them.
 
 :func:`accumulate_bins_kernel` dispatches on the device of its tensors:
 CPU tensors take the plain version :func:`bins.accumulate_bins`; CUDA

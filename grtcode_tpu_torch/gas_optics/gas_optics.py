@@ -149,11 +149,13 @@ class GasOptics:
         self.molecules[catalog.mol_id] = padded
         fsteps = self._fsteps
         margin = lines_mod.shift_margin(padded, self.grid.dw)
-        self.near_steps[catalog.mol_id] = min(
-            lines_mod.near_core_halfwidth(padded, self.grid.dw), fsteps)
+        near = min(lines_mod.near_core_halfwidth(padded, self.grid.dw),
+                   fsteps)
+        self.near_steps[catalog.mol_id] = near
         self.chunk_ranges[catalog.mol_id] = build_chunk_ranges(
             padded.c0, self.grid.n, fsteps, self.tile, self.ch,
-            shift_margin=margin)
+            shift_margin=margin, near_hw=near + margin,
+            region0_hw=lines_mod.region0_halfwidth(padded, self.grid.dw))
 
     def add_cfc(self, cfc_id, path: str):
         table = CrossSectionTable.from_file(int(cfc_id), path, self.grid,
@@ -227,6 +229,16 @@ class GasOptics:
 
         tau = torch.zeros((rows, nw), dtype=f32, device=self.device)
         bin_method = self.method in _BIN_METHODS
+        if not bin_method:
+            # The line_sample tables (near core, zones, shift margins) hold
+            # only up to these limits; beyond them a sample would silently
+            # take the wrong Humlicek region.
+            t_max, p_max = torch.stack([tavg.max(), pavg.max()]).tolist()
+            if t_max > lines_mod.TMAX_K or p_max > lines_mod.PMAX_ATM:
+                raise ValueError(
+                    f"layer temperature {t_max} K or pressure {p_max} atm "
+                    f"beyond the line_sample tables' limits "
+                    f"({lines_mod.TMAX_K} K, {lines_mod.PMAX_ATM} atm)")
         if bin_method:
             # The block is a whole number of bin groups and needs nothing
             # outside itself: every fine point and coarse triple of its

@@ -110,7 +110,11 @@ def bind_to_grid(catalog: LineCatalog, grid: SpectralGrid) -> GridLines:
 
 _X_FAR_SAFE = 13.0  # > sqrt(164): beyond every region-1 lower bound
 
-_PMAX_ATM = 1.5  # generous pressure ceiling for shift-margin sizing
+# The warmest layer and the highest layer pressure the grid tables are
+# sized for (near-core and region-0 half-widths, shift margins):
+# GasOptics.optical_depth refuses rows beyond them on the line_sample path.
+TMAX_K = 500.0
+PMAX_ATM = 1.5
 
 
 def shift_margin(lines: GridLines, dw: float) -> int:
@@ -119,7 +123,7 @@ def shift_margin(lines: GridLines, dw: float) -> int:
     if lines.num_lines == 0:
         return 1
     dmax = float(np.max(np.abs(lines.d)))
-    return max(1, int(np.ceil(dmax * _PMAX_ATM / dw + 0.5)))
+    return max(1, int(np.ceil(dmax * PMAX_ATM / dw + 0.5)))
 
 
 def _x_threshold_halfwidth(lines: GridLines, dw: float, x_min: float,
@@ -136,7 +140,7 @@ def _x_threshold_halfwidth(lines: GridLines, dw: float, x_min: float,
 
 
 def near_core_halfwidth(lines: GridLines, dw: float,
-                        tmax: float = 500.0) -> int:
+                        tmax: float = TMAX_K) -> int:
     """Half-width [grid points] of the near-core window outside which the
     far-wing Voigt (Humlicek regions 0/1) is exact (|x| >= 13)."""
     return _x_threshold_halfwidth(lines, dw, _X_FAR_SAFE, tmax)
@@ -148,7 +152,7 @@ _X_REGION0_SAFE = 124.0
 
 
 def region0_halfwidth(lines: GridLines, dw: float,
-                      tmax: float = 500.0) -> int:
+                      tmax: float = TMAX_K) -> int:
     """Half-width [grid points] outside which every point is Humlicek
     region 0 for every line, layer and physical temperature."""
     return _x_threshold_halfwidth(lines, dw, _X_REGION0_SAFE, tmax)

@@ -9,15 +9,18 @@ hash of the flags, the source and the shared ``csrc/humlicek.cuh``; see
 :mod:`grtcode_tpu_torch.cuda_build`) and called through a plain C entry
 point with ``ctypes``.
 
-What bounds it on the card is f32 arithmetic and IEEE division: each
-(row, line) pair's ~20 input bytes are reused across up to 2*fsteps+1
-points (501 at 0.1 cm-1), so device memory is not the limit.  The simple
-design does three things about it: each thread owns one (row, point)
-output and keeps its sum in a register; the point-independent per-line
-factors are computed once per block into shared memory; and the
-~300-operation five-region Humlicek evaluation runs only where a thread's
-point lies in a line's near core, while the far wing is one rational with
-one division.
+What bounds it on the card is f32 arithmetic and the IEEE division of
+every term: each (row, line) pair's ~20 input bytes are reused across up
+to 2*fsteps+1 points (501 at 0.1 cm-1), so device memory is not the limit.
+The design (described at the top of the ``.cu`` file) keeps each term to
+as few instructions as its rounding allows: each thread sums a few
+consecutive points of one row in registers; the per-(row, line) factors
+are computed once per block into shared memory; the host tables of
+:func:`build_chunk_ranges` split a tile's lines into zones so the interior
+lines, most of them at 0.1 cm-1, take the division with no test at all;
+and the block evaluates the near-core samples of its tile first, a warp
+at a time over the same offset of 32 lines, so the point loop never
+branches into the five-region Humlicek for one lane.
 
 :func:`accumulate_voigt` dispatches on the device of its tensors: CPU
 tensors take :func:`voigt_line_sample_reference`; CUDA tensors launch the
@@ -43,37 +46,76 @@ build_log = ""   # nvcc / ptxas output of the last build (registers, smem)
 
 @dataclasses.dataclass
 class ChunkRanges:
-    """Per-tile contiguous line ranges (host tables, (ntiles,) int32).
+    """Per-tile line ranges and zones (host tables, (ntiles,) int32; the
+    JAX package's ``pallas_kernels.ChunkRanges`` without ``lpad``).
 
     Tile t covers grid points [t*tile, (t+1)*tile); its lines are
     ``[lo[t], lo[t] + ch * nchunks[t])`` of the center-sorted catalog,
-    ``lo`` aligned down to ``ch``.
+    ``lo`` aligned down to ``ch``.  The other tables are ranges of chunk
+    indices relative to ``lo[t]`` (in ``ch``-line units):
+
+      * ``[cnl, cnh)``: chunks whose lines can have a near-core sample in
+        the tile (centers within ``hw`` of it);
+      * ``[m0l, m0h)``: core-adjacent chunks, with some line within the
+        region-0 half-width (and ``hw``) of the tile: every test kept;
+      * ``[fll, flh)`` and ``[frl, frh)``: interior chunks, whose every
+        line covers the whole tile, lies beyond the region-0 half-width and
+        cannot shift off the grid: pure region 0, no test.
+
+    The other chunks are edge chunks: pure region 0 with the window test.
+    ``hw`` is the near-core half-width the tables were built for (the
+    kernel's ``near`` plus ``shift_margin`` must not exceed it).
     """
 
     lo: np.ndarray
     nchunks: np.ndarray
+    cnl: np.ndarray
+    cnh: np.ndarray
+    m0l: np.ndarray
+    m0h: np.ndarray
+    fll: np.ndarray
+    flh: np.ndarray
+    frl: np.ndarray
+    frh: np.ndarray
     tile: int
     ch: int
+    hw: int
+    shift_margin: int
     _on_device: dict = dataclasses.field(default_factory=dict, repr=False,
                                          compare=False)
 
+    def zones(self) -> np.ndarray:
+        """The kernel's (ntiles, 10) int32 table of line-index bounds per
+        tile: lo, hi, then the near-core, core-adjacent, interior-left and
+        interior-right ranges, each [start, end)."""
+        base = self.lo.astype(np.int64)
+        cols = [base] + [base + self.ch * c.astype(np.int64) for c in (
+            self.nchunks, self.cnl, self.cnh, self.m0l, self.m0h, self.fll,
+            self.flh, self.frl, self.frh)]
+        return np.stack(cols, axis=1).astype(np.int32)
+
     def tables(self, device):
-        """(lo, hi) int32 tensors on ``device`` (copied once)."""
+        """:meth:`zones` as a tensor on ``device`` (copied once)."""
         key = str(torch.device(device))
         if key not in self._on_device:
-            hi = self.lo.astype(np.int64) + self.ch * self.nchunks
-            self._on_device[key] = (
-                torch.as_tensor(self.lo, device=device),
-                torch.as_tensor(hi.astype(np.int32), device=device))
+            self._on_device[key] = torch.as_tensor(self.zones(),
+                                                   device=device)
         return self._on_device[key]
 
 
 def build_chunk_ranges(c0_sorted: np.ndarray, num_wpoints: int, fsteps: int,
-                       tile: int, ch: int, shift_margin: int = 2
-                       ) -> ChunkRanges:
-    """Lines whose unshifted center ``c0`` lies within ``fsteps +
-    shift_margin`` of each tile, as ch-aligned contiguous ranges (the
-    ``lo`` / ``nchunks`` of the JAX package's build_chunk_ranges)."""
+                       tile: int, ch: int, shift_margin: int = 2,
+                       near_hw: int | None = None,
+                       region0_hw: int | None = None) -> ChunkRanges:
+    """Per-tile chunk tables, a numpy copy of the JAX package's
+    ``pallas_kernels.build_chunk_ranges`` (byte-identical tables).
+
+    Lines whose unshifted center ``c0`` lies within ``fsteps +
+    shift_margin`` of tile t are ``ch``-aligned chunks from ``lo[t]``;
+    ``near_hw`` (default ``fsteps``) sizes the near-core range and
+    ``region0_hw`` (from :func:`lines.region0_halfwidth`) the zones; when
+    it is None every chunk is core-adjacent and none interior.
+    """
     ntiles = -(-num_wpoints // tile)
     reach = fsteps + shift_margin
     first = np.arange(ntiles) * tile
@@ -81,8 +123,58 @@ def build_chunk_ranges(c0_sorted: np.ndarray, num_wpoints: int, fsteps: int,
     hi = np.searchsorted(c0_sorted, first + (tile - 1) + reach, side="right")
     lo_al = (lo // ch) * ch
     nchunks = np.maximum(-(-(hi - lo_al) // ch), 0)
-    return ChunkRanges(lo_al.astype(np.int32), nchunks.astype(np.int32),
-                       tile=tile, ch=ch)
+    # Near-core chunk sub-range: lines whose c0 +- hw window overlaps the
+    # tile, i.e. c0 in [first - hw, first + tile - 1 + hw].
+    hw = fsteps if near_hw is None else near_hw
+    nlo = np.searchsorted(c0_sorted, first - hw, side="left")
+    nhi = np.searchsorted(c0_sorted, first + (tile - 1) + hw, side="right")
+    cnl = np.clip((nlo - lo_al) // ch, 0, nchunks)
+    cnh = np.clip(-(-(nhi - lo_al) // ch), 0, nchunks)
+
+    zeros = np.zeros(ntiles, np.int64)
+    if region0_hw is None:
+        m0l, m0h = zeros, nchunks.astype(np.int64)
+        fll = flh = frl = frh = zeros
+    else:
+        # Edge and interior chunks skip the near-core test, which is only
+        # sound when every line beyond the core zone is also beyond the
+        # near window: region0_hw is raised to the near reach.
+        reach0 = max(region0_hw, hw) + shift_margin
+        # Core-adjacent (ANY line within reach0 of the tile): floor start,
+        # ceil end.
+        il = np.searchsorted(c0_sorted, first - reach0, side="left")
+        ih = np.searchsorted(c0_sorted, first + (tile - 1) + reach0,
+                             side="right")
+        m0l = np.clip((il - lo_al) // ch, 0, nchunks)
+        m0h = np.clip(-(-(ih - lo_al) // ch), 0, nchunks)
+
+        # Interior (EVERY line of the chunk qualifies): ceil start, floor
+        # end.  Left: the window covers the whole tile (c0 >= first + tile
+        # - 1 - fsteps + margin), strictly beyond reach0 (c0 <= first -
+        # reach0 - 1), and the shifted center stays on the grid (c0 >=
+        # margin); the right range mirrors it.
+        def all_sub(vmin, vmax):
+            a = np.searchsorted(c0_sorted, vmin, side="left")
+            b = np.searchsorted(c0_sorted, vmax, side="right")
+            cl = np.clip(-(-(a - lo_al) // ch), 0, nchunks)
+            chh = np.clip((b - lo_al) // ch, 0, nchunks)
+            return cl, np.maximum(chh, cl)
+
+        fll, flh = all_sub(
+            np.maximum(first + (tile - 1) - fsteps + shift_margin,
+                       shift_margin),
+            first - reach0 - 1)
+        frl, frh = all_sub(
+            first + tile + reach0,
+            np.minimum(first + fsteps - shift_margin,
+                       num_wpoints - 1 - shift_margin))
+
+    i32 = np.int32
+    return ChunkRanges(lo_al.astype(i32), nchunks.astype(i32),
+                       cnl.astype(i32), cnh.astype(i32), m0l.astype(i32),
+                       m0h.astype(i32), fll.astype(i32), flh.astype(i32),
+                       frl.astype(i32), frh.astype(i32), tile=tile, ch=ch,
+                       hw=int(hw), shift_margin=int(shift_margin))
 
 
 def build():
@@ -92,7 +184,7 @@ def build():
         return _lib
     lib, build_log = build_library("voigt_line_sample")
     fn = lib.voigt_line_sample
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int64] * 2
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int64] * 2
                    + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     _lib = lib
@@ -151,7 +243,7 @@ voigt_line_sample_reference.launches = 0
 
 
 def _check_cuda_args(prep: PreparedLines, ns, tau0, ranges: ChunkRanges,
-                     start: int, num_wpoints: int):
+                     start: int, num_wpoints: int, near: int):
     device = tau0.device
     rows, L = prep.strength.shape
     named = dict(center_idx=prep.center_idx, center_frac=prep.center_frac,
@@ -173,6 +265,10 @@ def _check_cuda_args(prep: PreparedLines, ns, tau0, ranges: ChunkRanges,
     if start % ranges.tile:
         raise ValueError(f"block start {start} is not a multiple of the "
                          f"tile {ranges.tile}")
+    if near + ranges.shift_margin > ranges.hw:
+        raise ValueError(f"near {near} plus the shift margin "
+                         f"{ranges.shift_margin} exceeds the tables' "
+                         f"near-core half-width {ranges.hw}")
     if L >= 2 ** 31 or num_wpoints >= 2 ** 31:
         raise ValueError("line or point count exceeds int32 indexing")
 
@@ -186,12 +282,19 @@ def accumulate_voigt(prep: PreparedLines, ns, ranges: ChunkRanges, *,
     Args:
       prep: PreparedLines with contiguous (rows, L) tensors.
       ns: (rows,) species column density [cm-2].
-      ranges: per-tile line ranges from :func:`build_chunk_ranges` (the
-        kernel's tile is ``ranges.tile``; ``start`` must be a multiple).
+      ranges: per-tile line ranges and zones from :func:`build_chunk_ranges`
+        (the kernel's tile is ``ranges.tile``; ``start`` must be a
+        multiple; ``near + ranges.shift_margin <= ranges.hw``).
       num_wpoints, dw: block width and grid spacing.
       fsteps: half-window in grid points (ceil(cutoff/dw)).
       near: near-core half-width (full five-region scheme inside).
       num_global: grid size for the center / point validity tests.
+
+    The kernel trusts the tables: interior and edge lines take region 0
+    with no test, which holds only for rows no warmer than
+    ``lines.TMAX_K`` (500 K, the region-0 and near-core half-widths) and
+    at no more than ``lines.PMAX_ATM`` (1.5 atm, the shift margin);
+    :meth:`GasOptics.optical_depth` refuses rows beyond them.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise.  Returns ``tau0`` (rows, num_wpoints).
@@ -207,17 +310,16 @@ def accumulate_voigt(prep: PreparedLines, ns, ranges: ChunkRanges, *,
             near=near, num_global=num_global, tau0=tau0, start=start)
     if device.type != "cuda":
         raise ValueError(f"accumulate_voigt: unsupported device {device}")
-    _check_cuda_args(prep, ns, tau0, ranges, start, num_wpoints)
+    _check_cuda_args(prep, ns, tau0, ranges, start, num_wpoints, near)
     lib = build()
-    lo, hi = ranges.tables(device)
+    zones = ranges.tables(device)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.voigt_line_sample(
         prep.center_idx.data_ptr(), prep.center_frac.data_ptr(),
         prep.strength.data_ptr(), prep.lorentz.data_ptr(),
-        prep.doppler.data_ptr(), ns.data_ptr(), lo.data_ptr(),
-        hi.data_ptr(), tau0.data_ptr(), rows, prep.strength.shape[1],
-        start, num_wpoints, num_global, fsteps, near, ranges.tile,
-        lo.shape[0], dw, stream)
+        prep.doppler.data_ptr(), ns.data_ptr(), zones.data_ptr(),
+        tau0.data_ptr(), rows, prep.strength.shape[1], start, num_wpoints,
+        num_global, fsteps, near, ranges.tile, zones.shape[0], dw, stream)
     if err != 0:
         raise RuntimeError(f"voigt_line_sample launch failed: CUDA error "
                            f"{err}")

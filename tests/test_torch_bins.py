@@ -274,3 +274,61 @@ def test_interpolate_bins_matches_jax(ppb_grid, block):
         tau=torch.as_tensor(tau.copy()), **kw, **extra).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
     assert (got >= tau - 1e-7).all()      # wings clamp at zero
+
+
+# Fine points of one block part of the bin kernel (csrc/voigt_bins.cu,
+# kSlots): a bin of ppb points is split into parts of this many.
+K_SLOTS = 128
+
+
+@pytest.mark.parametrize("which", ["heavy", "light"])
+@pytest.mark.parametrize("mode", ["bin_sweep", "line_sweep"])
+def test_fine_tile_region0_rule_holds_for_every_sample(heavy, light, which,
+                                                       mode):
+    """The bin kernel decides once per (row, local line, bin part) whether
+    every sample of the line in the part is Humlicek region 0, from the
+    part's points nearest cidx - 1, cidx and cidx + 1 (|x| is monotone in
+    the point on each side of the centre).  A part is a run of up to
+    K_SLOTS points of one bin, from the bin's start; the local lines are
+    the bin's own.  Brute force over every (row, local line, part point),
+    with x rounded as the kernel rounds it, on bins of 11 points and of
+    151 (two parts, the second partial): the least |x| over the part is
+    always at one of those three points, so a line the rule sends down the
+    region-0 path has no sample inside the region-0 limit."""
+    grid, *_, port_bound, prep, _ = dict(heavy=heavy, light=light)[which]
+    f32 = torch.float32
+    dw = torch.tensor(grid.dw, dtype=f32)
+    repwid = torch.tensor(jconst.SQRT_LN2, dtype=f32) / prep.doppler
+    y = torch.clamp(repwid * prep.lorentz, max=70.0)
+    xlim0 = torch.sqrt(15100.0 + y * (40.0 - y * 3.6))
+    cidx = prep.center_idx
+
+    def absx(g, sl):          # (rows, lines, points) |x| at fine points g
+        c = cidx[:, sl, None]
+        return ((((g.to(f32) - c.to(f32)) - prep.center_frac[:, sl, None])
+                 * dw) * repwid[:, sl, None]).abs()
+
+    tested = inside = parts = 0
+    for width in (1.0, 15.0):
+        pb = bins.create_spectral_bins(grid.n, grid.w0, grid.dw, width)
+        bnd = bins.build_bin_ranges(port_bound, pb, mode=mode).bounds()
+        for j in range(pb.n):
+            if bnd[1, j] <= bnd[0, j]:
+                continue
+            sl = slice(int(bnd[0, j]), int(bnd[1, j]))
+            for part in range(0, pb.ppb, K_SLOTS):
+                first = j * pb.ppb + part
+                last = min(j * pb.ppb + min(pb.ppb, part + K_SLOTS),
+                           grid.n) - 1
+                if last < first:
+                    continue
+                brute = absx(torch.arange(first, last + 1), sl).amin(2)
+                near = torch.stack([torch.clamp(cidx[:, sl] + s, first, last)
+                                    for s in (-1, 0, 1)], 2)
+                rule = absx(near, sl).amin(2)
+                assert torch.equal(rule, brute), (width, j, part)
+                inside += int((brute < xlim0[:, sl]).sum())
+                tested += brute.numel()
+                parts += part > 0
+    assert tested > 0 and 0 < inside < tested
+    assert parts > 0          # some bin was split into parts

@@ -193,3 +193,17 @@ def test_block_outside_the_grid_raises(gases, inputs):
             own.optical_depth(p, t, vmr, cfc_vmr=cfc, cia_vmr=cia,
                               block_start=start, block_size=64)
 
+
+
+@pytest.mark.parametrize("beyond", ["temperature", "pressure"])
+def test_rows_beyond_the_tables_limits_raise(gases, inputs, beyond):
+    """The line_sample tables hold up to 500 K and 1.5 atm per layer;
+    rows beyond either limit are refused, not computed."""
+    own = gases[1]
+    p, t, vmr, cfc, cia = inputs[1]
+    if beyond == "temperature":
+        t = np.asarray(t) + 300.0
+    else:
+        p = np.asarray(p) * 2.0
+    with pytest.raises(ValueError, match="limits"):
+        own.optical_depth(p, t, vmr, cfc_vmr=cfc, cia_vmr=cia)

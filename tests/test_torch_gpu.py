@@ -19,6 +19,7 @@ from grtcode_tpu_torch.gas_optics import bins as bm
 from grtcode_tpu_torch.gas_optics import bins_kernel as bk
 from grtcode_tpu_torch.gas_optics import lines, voigt_kernel as vk
 from grtcode_tpu_torch.gas_optics.hitran import synthetic_catalog
+from grtcode_tpu_torch.kernel_bench import census_bins, census_line_sample
 from grtcode_tpu_torch.spectral import SpectralGrid
 from grtcode_tpu_torch.utils import curtis_godson as cg
 
@@ -234,3 +235,119 @@ def test_csaf_step_on_the_card_matches_the_cpu(cuda, case):
         scale = np.maximum(np.abs(want[var]), 0.01 * np.abs(want[var]).max())
         assert float((np.abs(got[var] - want[var]) / scale).max()) < \
             FLUX_TOL, var
+
+
+# ---------------------------------------------------------------------------
+# Lines placed on every zone boundary, every Humlicek region and both y
+# limits (prepared lines built directly, so the cases are exact)
+# ---------------------------------------------------------------------------
+
+PLACED_Y = (0.0, 1e-7, 0.01, 0.5, 2.0, 5.0, 9.0, 70.6, 300.0)
+
+
+def _placed_lines(device, c0, repwid_range, seed):
+    """PreparedLines on len(PLACED_Y) rows for unshifted centers ``c0``:
+    row r has y = PLACED_Y[r] (0 and 1e-7 below the tiny-y limit 1e-6;
+    70.6 and 300 pure Lorentz), every line's per-row center is c0 - 1, c0
+    or c0 + 1 in turn, and sqrt(ln2) / alpha_d is drawn log-uniformly from
+    ``repwid_range``.  Column densities 1e20, so S n / 1e20 = S."""
+    rng = np.random.default_rng(seed)
+    rows, L = len(PLACED_Y), len(c0)
+    shift = (np.arange(rows)[:, None] + np.arange(L)[None, :]) % 3 - 1
+    repwid = np.exp(rng.uniform(*np.log(repwid_range), (rows, L)))
+    y = np.asarray(PLACED_Y)[:, None] * np.ones((1, L))
+
+    def f32(a):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.float32),
+                               device=device)
+
+    prep = lines.PreparedLines(
+        torch.as_tensor((c0[None, :] + shift).astype(np.int32),
+                        device=device),
+        f32(rng.uniform(-0.5, 0.5, (rows, L))),
+        f32(rng.uniform(0.1, 1.0, (rows, L))),
+        f32(y / repwid), f32(constants.SQRT_LN2 / repwid))
+    return prep, torch.full((rows,), 1e20, device=device)
+
+
+# K1 case: 640 points at 0.1, tile 32, chunks of 8, fsteps 100, near 3 and
+# one line at every point from 3 below the grid to 3 above it.  With
+# sqrt(ln2) / alpha_d >= 38, |x| >= (34 - 1/2) 0.1 * 38 > 124 beyond 33
+# points: the region-0 half-width the tables are given.
+ZONE_N, ZONE_TILE, ZONE_CH, ZONE_FSTEPS, ZONE_NEAR, ZONE_R0 = \
+    640, 32, 8, 100, 3, 33
+
+
+def placed_line_sample_case(device):
+    c0 = np.arange(-3, ZONE_N + 3)
+    prep, ns = _placed_lines(device, c0, (38.0, 60.0), seed=21)
+    ranges = vk.build_chunk_ranges(c0, ZONE_N, ZONE_FSTEPS, ZONE_TILE,
+                                   ZONE_CH, shift_margin=2,
+                                   near_hw=ZONE_NEAR + 2, region0_hw=ZONE_R0)
+    return prep, ns, ranges
+
+
+def placed_bins_case(device):
+    """K2 case: the same grid in bins of 11 points, a line every third
+    point (and off both ends) with sqrt(ln2) / alpha_d in [2, 500], so fine
+    and remote samples fall in every region and some lines' fine samples
+    in a tile are all region 0."""
+    c0 = np.arange(-4, ZONE_N + 4, 3)
+    prep, ns = _placed_lines(device, c0, (2.0, 500.0), seed=22)
+    zeros = np.zeros(len(c0), np.float32)
+    bound = lines.GridLines(
+        mol_id=1, mass_g=18.0, num_iso=1, c0=c0.astype(np.int32),
+        frac0=zeros, vnn=zeros + 100.0, snn=zeros, yair=zeros, yself=zeros,
+        en=zeros, n=zeros, d=zeros, iso0=np.zeros(len(c0), np.int32))
+    bins = bm.create_spectral_bins(ZONE_N, 100.0, 0.1, 1.0)
+    return prep, ns, bound, bins
+
+
+@pytest.mark.parametrize("start,nw", [(0, ZONE_N), (5 * ZONE_TILE,
+                                                    6 * ZONE_TILE)])
+def test_kernel_on_zone_boundaries_and_y_limits(cuda, start, nw):
+    """K1 with lines on every tile +- reach0 and +- near boundary, near =
+    3, y <= 1e-6 and y >= 70.55 rows, samples in every Humlicek region, the
+    interior, edge and core-adjacent zones all present, at block start 0
+    and > 0: the plain version's values, and bit-identical reruns."""
+    prep, ns, ranges = placed_line_sample_case(cuda)
+    interior = (ranges.flh - ranges.fll) + (ranges.frh - ranges.frl)
+    assert interior.sum() > 0 and (ranges.m0h > ranges.m0l).all()
+    kw = dict(num_wpoints=nw, dw=0.1, fsteps=ZONE_FSTEPS, near=ZONE_NEAR,
+              num_global=ZONE_N, start=start)
+    got = vk.accumulate_voigt(prep, ns, ranges, **kw)
+    again = vk.accumulate_voigt(prep, ns, ranges, **kw)
+    want = vk.voigt_line_sample_reference(prep, ns, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+    cen = census_line_sample(prep, ranges, **kw)
+    assert all(cen["samples"][c] > 0 for c in (
+        "region1", "region2", "region3", "region4a", "lorentz"))
+
+
+@pytest.mark.parametrize("mode", ["bin_sweep", "line_sweep"])
+@pytest.mark.parametrize("start_bin,nbins", [(0, None), (8, 24)])
+def test_bin_kernel_in_every_region_and_y_limit(cuda, mode, start_bin,
+                                                nbins):
+    """K2 with upper-atmosphere rows whose fine and remote samples fall in
+    Humlicek regions 1-4, y <= 1e-6 and y >= 70.55 rows, lines off both
+    grid ends, at start_bin 0 and > 0: the plain version's values within
+    its bar, and bit-identical reruns."""
+    prep, ns, bound, bins = placed_bins_case(cuda)
+    ranges = bm.build_bin_ranges(bound, bins, mode=mode)
+    kw = dict(start_bin=start_bin, nbins=nbins)
+    got = bk.accumulate_bins_kernel(prep, ns, ranges, bins, **kw)
+    again = bk.accumulate_bins_kernel(prep, ns, ranges, bins, **kw)
+    want = bm.accumulate_bins(prep, ns, ranges, bins, **kw)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        w = w.cpu().numpy()
+        np.testing.assert_allclose(g.cpu().numpy(), w, rtol=BIN_RTOL,
+                                   atol=BIN_ATOL * np.abs(w).max())
+    cen = census_bins(prep, ranges, bins, start_bin=start_bin,
+                      nbins=bins.n - start_bin if nbins is None else nbins)
+    assert all(cen["fine_samples"][c] > 0 for c in (
+        "region0", "region1", "region2", "region3", "region4a", "lorentz"))

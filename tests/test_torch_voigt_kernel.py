@@ -175,12 +175,13 @@ def _args(setup, **change):
     fields.update({k: v for k, v in change.items() if k in fields})
     tau0 = change.get("tau0", torch.zeros((tns.shape[0], 4 * TILE)))
     return (lines.PreparedLines(**fields), change.get("ns", tns), tau0,
-            ranges, change.get("start", 0), 4 * TILE)
+            ranges, change.get("start", 0), 4 * TILE,
+            change.get("near", NEAR))
 
 
 @pytest.mark.parametrize("bad", [
     "center_idx_dtype", "strength_dtype", "noncontiguous", "ns_shape",
-    "tau0_shape", "misaligned_start"])
+    "tau0_shape", "misaligned_start", "near_beyond_tables"])
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(setup, bad):
     p = setup[4]
     change = {
@@ -191,6 +192,8 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(setup, bad):
         "ns_shape": dict(ns=setup[5][:-1]),
         "tau0_shape": dict(tau0=torch.zeros((3, 4 * TILE))),
         "misaligned_start": dict(start=TILE // 2),
+        # The tables' near-core range holds near + shift margin <= hw.
+        "near_beyond_tables": dict(near=FSTEPS - 1),
     }[bad]
     with pytest.raises(ValueError):
         vk._check_cuda_args(*_args(setup, **change))
@@ -207,3 +210,124 @@ def test_other_devices_raise(setup):
                             num_wpoints=4 * TILE, dw=float(grid.dw),
                             fsteps=FSTEPS, near=NEAR, num_global=grid.n)
 
+
+
+# ---------------------------------------------------------------------------
+# The zone tables of build_chunk_ranges
+# ---------------------------------------------------------------------------
+
+_ZONE_TABLES = ("lo", "nchunks", "cnl", "cnh", "m0l", "m0h", "fll", "flh",
+                "frl", "frh")
+# (fsteps, near, tile, ch): the line_sample window of the LW 0.1 band with
+# the production tile and chunk, and small windows with small chunks.
+_ZONE_CASES = [(250, 3, 64, 32), (60, 3, 32, 8), (30, 4, 32, 16)]
+
+
+def _dense(w0=100.0, n_lines=3000, seed=7):
+    """A dense catalogue on an 80 cm-1 grid at 0.1 from ``w0`` (several
+    lines per grid point, so whole chunks fall into every zone), prepared
+    by the port on 3 x 6 rows over 0.01-1013 mb.  At 30,000 cm-1 the
+    Doppler widths put the region-0 half-width near 100 points."""
+    from grtcode_tpu_torch.gas_optics.hitran import synthetic_catalog as tcat
+    from grtcode_tpu_torch.spectral import SpectralGrid as TGrid
+    from grtcode_tpu_torch.utils import curtis_godson as tcg
+    grid = TGrid(w0, w0 + 80.0, 0.1)
+    rng = np.random.default_rng(seed)
+    vnn = np.sort(rng.uniform(w0 - 10.0, w0 + 90.0, n_lines))
+    cat = tcat(1, vnn, rng.uniform(1e-22, 1e-19, n_lines),
+               yair=rng.uniform(0.02, 0.1, n_lines),
+               yself=rng.uniform(0.05, 0.4, n_lines),
+               en=rng.uniform(0.0, 2000.0, n_lines),
+               n=rng.uniform(0.4, 0.8, n_lines),
+               d=rng.uniform(-0.02, 0.02, n_lines))
+    bound = lines.bind_to_grid(cat, grid)
+    nlev, B = 7, 3
+    p = np.linspace(0.01, 1013.0, nlev)[None, :] * np.ones((B, 1))
+    t = np.linspace(215.0, 288.0, nlev)[None, :] + \
+        rng.uniform(-3, 3, (B, nlev))
+    x = rng.uniform(1e-5, 1e-2, (B, nlev))
+    p_atm = torch.as_tensor(p, dtype=torch.float32) * jconst.MB_TO_ATM
+    pavg, tavg = tcg.layer_pressures_temperatures(
+        p_atm, torch.as_tensor(t, dtype=torch.float32))
+    psavg, _ = tcg.partial_pressures_and_densities(
+        p_atm, torch.as_tensor(x, dtype=torch.float32),
+        tcg.number_densities(p_atm))
+    rows = B * (nlev - 1)
+    prep = lines.prepare(bound, grid, pavg.reshape(rows), tavg.reshape(rows),
+                         psavg.reshape(rows))
+    return grid, bound, prep
+
+
+@pytest.fixture(scope="module", params=[100.0, 30000.0], ids=["ir", "uv"])
+def dense(request):
+    return _dense(w0=request.param)
+
+
+@pytest.mark.parametrize("fsteps,near,tile,ch", _ZONE_CASES)
+def test_zone_tables_byte_identical_to_jax(dense, fsteps, near, tile, ch):
+    grid, bound, _ = dense
+    margin = lines.shift_margin(bound, grid.dw)
+    r0 = lines.region0_halfwidth(bound, grid.dw)
+    kw = dict(shift_margin=margin, near_hw=near + margin, region0_hw=r0)
+    want = jpk.build_chunk_ranges(bound.c0, grid.n, fsteps, tile, ch, **kw)
+    got = vk.build_chunk_ranges(bound.c0, grid.n, fsteps, tile, ch, **kw)
+    for name in _ZONE_TABLES:
+        a, b = getattr(want, name), getattr(got, name)
+        assert a.dtype == b.dtype and np.array_equal(a, b), name
+    assert (got.hw, got.shift_margin) == (near + margin, margin)
+    interior = (got.flh - got.fll) + (got.frh - got.frl)
+    if fsteps > 2 * tile:          # the production window: interior zones
+        assert interior.sum() > got.nchunks.sum() // 4
+
+
+@pytest.mark.parametrize("fsteps,near,tile,ch", _ZONE_CASES)
+def test_zones_hold_for_every_sample(dense, fsteps, near, tile, ch):
+    """Brute force over every (row, line, point) of every tile: a line the
+    tables leave out of a tile adds nothing to it; an interior line is on
+    the grid, in the window, beyond the near core and in Humlicek region 0
+    (or the pure-Lorentz limit) at every point of the tile; an edge line
+    is beyond the near core and in region 0 wherever it is in the window;
+    every near-core sample's line lies in the near-core range and the
+    core-adjacent zone.  Region 0 is tested as the kernel rounds it."""
+    grid, bound, prep = dense
+    n = grid.n
+    margin = lines.shift_margin(bound, grid.dw)
+    ranges = vk.build_chunk_ranges(
+        bound.c0, n, fsteps, tile, ch, shift_margin=margin,
+        near_hw=near + margin,
+        region0_hw=lines.region0_halfwidth(bound, grid.dw))
+    zones = ranges.zones().astype(np.int64)
+    f32 = torch.float32
+    cidx = prep.center_idx.to(torch.int64)[:, :, None]
+    frac = prep.center_frac[:, :, None]
+    repwid = torch.tensor(jconst.SQRT_LN2, dtype=f32) / prep.doppler
+    y_true = (repwid * prep.lorentz)[:, :, None]
+    y = torch.clamp(y_true, max=70.0)
+    xlim0sq = 15100.0 + y * (40.0 - y * 3.6)
+    lor = y_true >= 70.55
+    dw = torch.tensor(grid.dw, dtype=f32)
+    L = cidx.shape[1]
+    idx = np.arange(L)
+    counts = np.zeros(3, np.int64)
+    for t, (lo, hi, nlo, nhi, clo, chi, l0, l1, r0, r1) in enumerate(zones):
+        g = torch.arange(t * tile, min((t + 1) * tile, n))
+        delta = g - cidx                                   # (rows, L, T)
+        valid = (cidx >= 0) & (cidx < n)
+        window = valid & (delta.abs() <= fsteps)
+        xi = ((delta.to(f32) - frac) * dw) * repwid[:, :, None]
+        region0 = lor | (xi * xi >= xlim0sq)
+        beyond = delta.abs() > near
+        reach = window.any(2).any(0).numpy()
+        assert not reach[(idx < lo) | (idx >= hi)].any(), t
+        core = (idx >= clo) & (idx < chi)
+        interior = ~core & (((idx >= l0) & (idx < l1)) |
+                            ((idx >= r0) & (idx < r1)))
+        edge = (idx >= lo) & (idx < hi) & ~core & ~interior
+        ok_int = (window & beyond & region0).all(2).all(0).numpy()
+        assert ok_int[interior].all(), t
+        ok_edge = (~window | (beyond & region0)).all(2).all(0).numpy()
+        assert ok_edge[edge].all(), t
+        near_line = (window & ~beyond & ~lor).any(2).any(0).numpy()
+        assert (core & (idx >= nlo) & (idx < nhi))[near_line].all(), t
+        counts += [interior.sum(), edge.sum(), core.sum()]
+    assert counts[2] > 0 and (fsteps <= 2 * tile or counts.min() > 0)
