@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 builds the two CUDA kernels from csrc/ with nvcc (K1, line_sample Voigt;
-K2, the bin-method Voigt) and drives the port's two main paths,
+K2, the bin-method Voigt) and drives the port's three main paths,
 ``RadiationDriver(lw_gas, sw_gas, solar).run(atm)`` on a clean, clear
 atmosphere with line_sample at LW 0.1 cm-1 and with the bin method at the
-production LW 0.01 cm-1 streamed through 10 spectral blocks, in eight
-phases (one line each):
+production LW 0.01 cm-1 streamed through 10 spectral blocks, and the
+all-sky step (aerosols, stochastic clouds, half the columns at night) at
+LW 0.1, in nine phases (one line each):
 
   1. the card: name and power limit as nvidia-smi gives them (on a line
      of their own, then the phase line with the torch / CUDA versions and
@@ -47,7 +48,18 @@ phases (one line each):
      step (each kernel's share, the line prep's, the idle share) and the
      step's host-device synchronisations by source line; then K2 against
      its plain version at the main path's shapes (1,728 rows, LW O2 at 0.01
-     over one full LW block), timed, with its census and bound.
+     over one full LW block), timed, with its census and bound;
+  9. the all-sky step: (a) the reference-C golden's 12 rows (CSAF at 1e-4,
+     CS and AF at 1e-3) through examples.golden_case(sky="all"); (b)
+     examples.allsky_like() (the phase-5 model with Angstrom aerosols, an
+     ERA5-like cloud field in one stochastic subcolumn, 16 of 32 columns at
+     night): one untimed and three timed steps of the three tiers, 18 K1
+     launches per step (7 LW + 4 SW for the lit columns, 7 LW for the
+     night ones) and no plain launch; (c) a profiled step: K1, line prep,
+     cloud optics (the ``grtcode::cloud_optics`` range) and the rest, the
+     idle share, and K1's bound on the step (one census per launch); (d) column_chunk=8 equal to the whole batch in every
+     tier (rtol 2e-6 / atol 1e-6), AF unlike CSAF, night SW exactly 0, the
+     step's cloud draws on the card bit-identical to the CPU's.
 
 Prints a kernels JSON line and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero without that line; there is no CPU
@@ -69,6 +81,8 @@ TOL_KERNEL = dict(rtol=2e-6, atol=1e-12)   # tests/test_pallas.py:96
 TOL_BIN_KERNEL = dict(rtol=2e-5, atol=2e-6)  # x max; test_bins_pallas.py:88
 TOL_GOLDEN = 1e-4                          # tests/test_driver_golden.py:40
 TOL_BINS_GOLDEN = dict(rtol=2e-3, atol=1e-7)  # tests/test_bins.py:59
+TOL_GOLDEN_TIERS = 1e-3                    # tests/test_driver_golden.py:203
+TOL_CHUNK = dict(rtol=2e-6, atol=1e-6)     # tests/test_framework.py:190
 REPLACES = "grtcode_tpu/gas_optics/pallas_kernels.py:247"
 SOURCE = "grtcode_tpu_torch/csrc/voigt_line_sample.cu"
 REPLACES_K2 = "grtcode_tpu/gas_optics/bins_pallas.py:215"
@@ -102,6 +116,7 @@ def profile_step(step):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from grtcode_tpu_torch.framework.driver import CLOUD_OPTICS_RANGE
     from grtcode_tpu_torch.gas_optics.gas_optics import LINE_PREP_RANGE
 
     torch.cuda.synchronize()
@@ -112,9 +127,15 @@ def profile_step(step):
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     rows = []
-    prep_ms = prep_span_ms = 0.0
-    prep_count = 0
+    prep_ms = prep_span_ms = cloud_ms = 0.0
+    prep_count = cloud_count = 0
     for e in prof.key_averages():
+        if e.key == CLOUD_OPTICS_RANGE:
+            # The kernels launched inside the callback (host-side range).
+            if e.device_type != DeviceType.CUDA:
+                cloud_ms += e.device_time_total / 1e3
+                cloud_count += e.count
+            continue
         if e.key == LINE_PREP_RANGE:
             # The range appears twice: on the host, whose device time is
             # that of the kernels launched inside it, and as a device-side
@@ -143,12 +164,22 @@ def profile_step(step):
             f"({prep_ms / busy_ms:.1%} of busy) spanning {prep_span_ms:.1f} "
             f"ms on the device" if prep_ms > 0 else
             "line prep: no device time attributed (not measured)")
+    if cloud_count:
+        prep += (f", cloud optics ({cloud_count} calls) {cloud_ms:.1f} ms of "
+                 f"kernels ({cloud_ms / busy_ms:.1%} of busy)")
+    rest_ms = busy_ms - sum(kernel_ms.values()) - prep_ms - cloud_ms
+    launches = sum(r[2] for r in rows)
     summary = (f"device busy {busy_ms:.1f} ms of {wall_us / 1e3:.1f} ms wall "
-               f"(idle {1 - busy_ms * 1e3 / wall_us:.1%}), {shares}, {prep}")
+               f"(idle {1 - busy_ms * 1e3 / wall_us:.1%}) in {launches} "
+               f"kernel launches, {shares}, {prep}, "
+               f"the rest {rest_ms:.1f} ms ({rest_ms / busy_ms:.1%} of busy)")
     return {"summary": summary, "wall_ms": wall_us / 1e3,
-            "busy_ms": busy_ms, "kernel_ms": kernel_ms,
+            "busy_ms": busy_ms, "idle_share": 1 - busy_ms * 1e3 / wall_us,
+            "launches": launches,
+            "kernel_ms": kernel_ms,
             "line_prep_ms": prep_ms, "line_prep_span_ms": prep_span_ms,
-            "line_prep_calls": prep_count,
+            "line_prep_calls": prep_count, "cloud_optics_ms": cloud_ms,
+            "cloud_optics_calls": cloud_count, "rest_ms": rest_ms,
             "top": [dict(name=n[:80], ms=v, count=c) for n, v, c in rows[:12]]}
 
 
@@ -300,6 +331,29 @@ def phase_kernel_vs_plain(info, dev):
     return worst
 
 
+def read_driver_golden():
+    """tests/data/driver_golden.txt: row label -> per-level values."""
+    golden, cur = {}, None
+    with open(os.path.join("tests", "data", "driver_golden.txt")) as f:
+        for line in f:
+            line = line.strip()
+            if line.startswith("nlev"):
+                continue
+            if line.startswith("r"):
+                cur = line
+                golden[cur] = []
+            else:
+                golden[cur].append(float(line))
+    return {k: np.asarray(v) for k, v in golden.items()}
+
+
+def worst_rel(ours, ref):
+    """Worst |ours - ref| / max(|ref|, 1 % of max |ref|): the golden
+    test's rule."""
+    scale = np.maximum(np.abs(ref), 0.01 * np.abs(ref).max())
+    return float((np.abs(ours - ref) / scale).max())
+
+
 def phase_golden(info, dev):
     import torch
     from tools.goldens import driver_inputs
@@ -314,24 +368,13 @@ def phase_golden(info, dev):
     res = driver.run(atm, integrated=True).tiers["csaf"]
     torch.cuda.synchronize()
 
-    golden, cur = {}, None
-    with open(os.path.join("tests", "data", "driver_golden.txt")) as f:
-        for line in f:
-            line = line.strip()
-            if line.startswith("nlev"):
-                continue
-            if line.startswith("r"):
-                cur = line
-                golden[cur] = []
-            else:
-                golden[cur].append(float(line))
+    golden = read_driver_golden()
     worst = {}
     for var in ("rlu", "rld", "rsu", "rsd"):
-        ref = np.asarray(golden[var])
+        ref = golden[var]
         ours = res[var][0].cpu().numpy()
         check(ours.shape == ref.shape, f"{var}: shape {ours.shape}")
-        scale = np.maximum(np.abs(ref), 0.01 * np.abs(ref).max())
-        worst[var] = float((np.abs(ours - ref) / scale).max())
+        worst[var] = worst_rel(ours, ref)
         check(worst[var] < TOL_GOLDEN,
               f"golden {var}: worst rel err {worst[var]:.2e}")
     info["phase4"] = worst
@@ -870,6 +913,183 @@ def bin_full_rows_vs_plain(gas, mol, batch, dev, nbins, kernel_reps,
                  f"{census_summary(cen)}"))
 
 
+def phase_allsky(info, dev, card):
+    """The all-sky path: the golden's three tiers, the full-width step,
+    its profile and its checks.  Returns K1's launches on the step."""
+    import torch
+    from tools.goldens import driver_inputs
+    from grtcode_tpu_torch import examples
+    from grtcode_tpu_torch.clouds.lib import overlap_from_pressure
+    from grtcode_tpu_torch.clouds.stochastic import cloudiness
+    from grtcode_tpu_torch.gas_optics import voigt_kernel as vk
+    from grtcode_tpu_torch.spectral import SpectralGrid
+    from grtcode_tpu_torch.utils import prng
+
+    # (a) The reference-C golden, every tier.
+    with tempfile.TemporaryDirectory() as d:
+        inputs = driver_inputs.write_inputs(d)
+        inputs.update(aerosol=driver_inputs.aerosol(),
+                      clouds=driver_inputs.clouds(),
+                      pade=driver_inputs.pade_tables())
+        gdriver, gatm = examples.golden_case(
+            d, inputs, SpectralGrid(*driver_inputs.LW_GRID),
+            SpectralGrid(*driver_inputs.SW_GRID), device=dev, sky="all")
+    gres = gdriver.run(gatm, integrated=True).tiers
+    torch.cuda.synchronize()
+    golden = read_driver_golden()
+    golden_worst = {}
+    for sfx, tier in (("", "csaf"), ("_cs", "cs"), ("_af", "af")):
+        tol = TOL_GOLDEN if tier == "csaf" else TOL_GOLDEN_TIERS
+        for var in ("rlu", "rld", "rsu", "rsd"):
+            ours = gres[tier][var][0].cpu().numpy()
+            ref = golden[var + sfx]
+            check(ours.shape == ref.shape, f"golden {var + sfx}: shape")
+            golden_worst[var + sfx] = worst_rel(ours, ref)
+            check(golden_worst[var + sfx] < tol, f"golden {var + sfx}: "
+                  f"worst rel err {golden_worst[var + sfx]:.2e} >= {tol}")
+    del gdriver, gatm, gres
+
+    # (b) The full-width step, every launch count starting at 0.
+    t0 = time.perf_counter()
+    driver, atm = examples.allsky_like(device=dev)
+    setup_s = time.perf_counter() - t0
+    lw_gas, sw_gas = driver.lw_gas, driver.sw_gas
+    B, nlayers = atm.batch, atm.num_layers
+    lit = atm.cos_zenith > 0.0
+    n_lit = int(lit.sum())
+    check(0 < n_lit < B, f"{n_lit} of {B} columns lit: compaction is off")
+    per_step = 2 * len(lw_gas.molecules) + len(sw_gas.molecules)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def step():
+        return driver.run(atm, integrated=True)
+
+    vk.accumulate_voigt.launches = 0
+    vk.voigt_line_sample_reference.launches = 0
+    step_s = []
+    res = None
+    for i in range(4):
+        before = vk.accumulate_voigt.launches
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+        if i == 3:
+            under_load = clocks()
+        check(vk.accumulate_voigt.launches - before == per_step,
+              f"step {i}: {vk.accumulate_voigt.launches - before} K1 "
+              f"launches, expected {per_step}")
+    launches = vk.accumulate_voigt.launches
+    check(vk.voigt_line_sample_reference.launches == 0,
+          "the plain version ran on the all-sky path")
+    peak = torch.cuda.max_memory_allocated()
+
+    tiers = {t: {k: v.cpu().numpy() for k, v in fx.items()}
+             for t, fx in res.tiers.items()}
+    check(list(tiers) == ["csaf", "cs", "af"], f"tiers {list(tiers)}")
+    want_top = atm.total_solar_irradiance[lit] * atm.cos_zenith[lit]
+    for t, fx in tiers.items():
+        for var, v in fx.items():
+            check(v.shape == (B, nlayers + 1), f"{t} {var}: shape {v.shape}")
+            check(np.isfinite(v).all(), f"{t} {var}: not finite")
+        check(np.abs(fx["rld"][:, 0]).max() == 0.0, f"{t}: rld at TOA != 0")
+        rel = np.abs(fx["rsd"][lit, 0] - want_top) / want_top
+        check(rel.max() < 1e-4, f"{t}: rsd at TOA vs tsi*mu: {rel.max():.2e}")
+        check((fx["rlu"][:, 0] > 0).all(), f"{t}: OLR not positive")
+        # (d) Night columns get no shortwave at all.
+        check(not fx["rsu"][~lit].any() and not fx["rsd"][~lit].any(),
+              f"{t}: night SW != 0")
+    check(not np.allclose(tiers["af"]["rlu"], tiers["csaf"]["rlu"]),
+          "AF equals CSAF: the clouds did nothing")
+    check((tiers["cs"]["rsd"][lit, -1] < tiers["csaf"]["rsd"][lit, -1]).all(),
+          "aerosols did not dim the surface")
+    ms = 1e3 * float(np.mean(step_s[1:]))
+    points = B * nlayers * (lw_gas.grid.n + sw_gas.grid.n)
+    rate = points / (ms / 1e3)
+
+    # (c) One profiled step, and K1's bound on the step: the sum of each
+    # launch's (each LW molecule on the lit and on the night columns, each
+    # SW molecule on the lit ones).
+    breakdown = profile_step(step)
+    k1_step_bound, bound_by = 0.0, []
+    for gas, groups in ((lw_gas, (lit, ~lit)), (sw_gas, (lit,))):
+        for cols in groups:
+            part = {"p_lev": atm.level_pressure[cols],
+                    "t_lev": atm.level_temperature[cols],
+                    "vmr": {m: np.asarray(v)[cols]
+                            for m, v in atm.ppmv.items()}}
+            for mol in gas.molecules:
+                prep, _, kw = band_prep(gas, mol, part, dev)
+                b = k1_bound(prep, gas.chunk_ranges[mol], kw)
+                k1_step_bound += b["bound_ms"]
+                bound_by.append(b["bound_by"])
+                del prep
+    check(len(bound_by) == per_step, "one bound per K1 launch")
+    k1_ms = breakdown.get("kernel_ms", {}).get("voigt_line_sample", 0.0)
+
+    # (d) Column chunks equal the whole batch; the draws equal the CPU's.
+    chunked = driver.run(atm, integrated=True, column_chunk=8).tiers
+    chunk_err = 0.0
+    for t, fx in tiers.items():
+        for var, v in fx.items():
+            got = chunked[t][var].cpu().numpy()
+            ok = np.abs(got - v) <= TOL_CHUNK["atol"] + TOL_CHUNK["rtol"] * \
+                np.abs(v)
+            check(ok.all(), f"column_chunk=8 {t} {var} differs from the "
+                  f"whole batch (max abs {np.abs(got - v).max():.3e})")
+            chunk_err = max(chunk_err, float(np.abs(got - v).max()))
+    launches_after_checks = vk.accumulate_voigt.launches
+    key = prng.split(prng.prng_key(driver.cloud_seed, dev),
+                     driver.num_subcolumns)[0]
+    keys = prng.fold_in(key, torch.arange(B, device=dev))
+    kx, kr = prng.split(keys, 2).unbind(-2)
+    draws = torch.cat([prng.uniform(kx, nlayers),
+                       prng.uniform(kr, nlayers - 1)], -1)
+    kx_c, kr_c = kx.cpu(), kr.cpu()
+    draws_cpu = torch.cat([prng.uniform(kx_c, nlayers),
+                           prng.uniform(kr_c, nlayers - 1)], -1)
+    check(torch.equal(draws.cpu(), draws_cpu),
+          "the cloud draws on the card differ from the CPU's")
+    p_lay = 0.5 * (atm.level_pressure[:, :-1] + atm.level_pressure[:, 1:])
+    overlap = overlap_from_pressure(torch.as_tensor(p_lay))
+    same_cloudiness = bool(torch.equal(
+        cloudiness(keys, overlap.to(dev), nlayers).cpu(),
+        cloudiness(keys.cpu(), overlap, nlayers)))
+
+    info["phase9"] = dict(
+        card=card, golden_worst=golden_worst, setup_s=setup_s,
+        step_s=step_s, ms_per_step=ms, points_per_step=points,
+        points_per_s=rate, peak_bytes=peak, launches=launches,
+        launches_per_step=per_step, B=B, lit=n_lit, nlayers=nlayers,
+        clocks=under_load, nw=[lw_gas.grid.n, sw_gas.grid.n],
+        profile=breakdown, k1_step_bound_ms=k1_step_bound,
+        k1_bound_by={b: bound_by.count(b) for b in set(bound_by)},
+        chunk_max_abs_err=chunk_err,
+        chunk_launches=launches_after_checks - launches,
+        draws_bit_identical=True, cloudiness_bit_identical=same_cloudiness)
+    print(f"phase 9 all-sky step ({card}): golden 12 rows, worst rel err "
+          f"CSAF {max(golden_worst[v] for v in ('rlu', 'rld', 'rsu', 'rsd')):.2e}"
+          f" < {TOL_GOLDEN}, CS/AF "
+          f"{max(v for k, v in golden_worst.items() if '_' in k):.2e} < "
+          f"{TOL_GOLDEN_TIERS}; B={B} ({n_lit} lit) x {nlayers} layers x "
+          f"({lw_gas.grid.n} + {sw_gas.grid.n}) points, 3 tiers, {per_step} "
+          f"K1 launches/step, no plain launch, {ms:.1f} ms/step (steps "
+          f"{[round(s, 3) for s in step_s]} s; clocks after the last: "
+          f"{under_load}), {rate:.4e} points/s, peak {peak / 2 ** 30:.2f} "
+          f"GiB; profiled step: {breakdown['summary']}; K1 bound on the "
+          f"step {k1_step_bound:.2f} ms ({bound_by.count('operations')} of "
+          f"{per_step} launches bound by operations; "
+          f"{k1_step_bound / k1_ms if k1_ms else 0.0:.1%} of it reached); "
+          f"column_chunk=8 "
+          f"within rtol 2e-6 / atol 1e-6 of the whole batch (max abs "
+          f"{chunk_err:.3e}); night SW 0; AF differs from CSAF; cloud draws "
+          f"on the card bit-identical to the CPU's (cloudiness too: "
+          f"{same_cloudiness})", flush=True)
+    return launches
+
+
 def main():
     import torch
 
@@ -892,20 +1112,24 @@ def main():
     err6 = phase_bin_kernel_vs_plain(info, dev)
     phase_bins_golden(info, dev)
     launches8, o2_bins = phase_streamed_bins(info, dev, info["card"])
+    torch.cuda.empty_cache()
+    launches9 = phase_allsky(info, dev, info["card"])
     check("jax" not in sys.modules, "JAX was imported")
     info["seconds"] = time.perf_counter() - t0
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(info, f, indent=1, default=str)
-    # K1 runs on both paths (all 11 molecules at 0.1, the 4 SW molecules
-    # in each block of the streamed one); its launches are both counts.
+    # K1 runs on all three paths (all 11 molecules at 0.1, the 4 SW
+    # molecules in each block of the streamed one, 18 per all-sky step);
+    # its launches are the three counts.
     # No PyTorch call computes a Voigt sum over a line list: library_ms is
     # null for both.
     print(json.dumps({"kernels": [
         {"name": "voigt_line_sample", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES,
-         "launches": k1_launches + launches8["voigt_line_sample"],
+         "launches": k1_launches + launches8["voigt_line_sample"]
+         + launches9,
          "max_abs_err": max(err3, err5), "ms": o2["ms"],
          "plain_ms": o2["plain_ms_mean"], "bound_ms": o2["bound_ms"],
          "bound_by": o2["bound_by"], "library_ms": None},

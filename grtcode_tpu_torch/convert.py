@@ -3,9 +3,10 @@
 Each converter reads the JAX object's fields with ``np.asarray`` (grid-bound
 line arrays, padded and unpadded, near-core widths, per-tile line ranges,
 the bin-method settings, continuum and
-cross-section tables, the solar spectrum, the atmosphere) and builds the
-port's counterpart, so both packages compute the same thing from the same
-state.  Nothing here imports JAX: the objects are read by their fields.
+cross-section tables, the solar spectrum, the cloud-optics tables, the
+atmosphere with its aerosols and clouds, the driver's settings) and builds
+the port's counterpart, so both packages compute the same thing from the
+same state.  Nothing here imports JAX: the objects are read by their fields.
 """
 from __future__ import annotations
 
@@ -14,7 +15,11 @@ import dataclasses
 import numpy as np
 import torch
 
+from .clouds.hu_stamnes import HuStamnesLiquidOptics
+from .clouds.lib import CloudOpticsLib
+from .clouds.pade import PadeCloudOptics
 from .framework.atmosphere import Atmosphere
+from .framework.driver import RadiationDriver
 from .gas_optics import lines as lines_mod
 from .gas_optics.continua import OzoneContinuum, WaterVaporContinuum
 from .gas_optics.gas_optics import GasOptics
@@ -97,9 +102,55 @@ def solar_from_jax(solar, device) -> SolarFlux:
                      incident_flux=_f32(solar.incident_flux, device))
 
 
+def pade_from_jax(table, device) -> PadeCloudOptics:
+    """The port's PadeCloudOptics from a JAX ``PadeCloudOptics``."""
+    return PadeCloudOptics(*(_f32(getattr(table, f.name), device)
+                             for f in dataclasses.fields(PadeCloudOptics)))
+
+
+def hu_stamnes_from_jax(table, device) -> HuStamnesLiquidOptics:
+    """The port's HuStamnesLiquidOptics from a JAX
+    ``HuStamnesLiquidOptics``."""
+    coeffs = {f: _f32(getattr(table, f), device)
+              for f in ("a1", "b1", "c1", "a2", "b2", "c2", "a3", "b3", "c3")}
+    return HuStamnesLiquidOptics(
+        radii=np.asarray(table.radii, np.float64),
+        band_lims=_f32(table.band_lims, device), **coeffs,
+        min_radius=float(table.min_radius),
+        max_radius=float(table.max_radius))
+
+
+def cloud_lib_from_jax(lib, device) -> CloudOpticsLib:
+    """The port's CloudOpticsLib from a JAX ``CloudOpticsLib`` (a Pade or
+    Hu & Stamnes liquid table, a Pade ice table)."""
+    liquid = (hu_stamnes_from_jax(lib.liquid, device)
+              if hasattr(lib.liquid, "a1") else
+              pade_from_jax(lib.liquid, device))
+    return CloudOpticsLib(liquid=liquid, ice=pade_from_jax(lib.ice, device),
+                          liquid_radius=float(lib.liquid_radius))
+
+
+def driver_from_jax(driver, device, cloud_optics=None) -> RadiationDriver:
+    """The port's RadiationDriver from a JAX ``RadiationDriver``: its gas
+    optics, solar spectrum, subcolumn count, cloud seed and SW solver.  The
+    JAX cloud callback is a closure and cannot be read by its fields: pass
+    the port's own as ``cloud_optics`` (for example
+    ``cloud_lib_from_jax(lib, device).driver_callback()``)."""
+    return RadiationDriver(
+        gas_optics_from_jax(driver.lw_gas, device),
+        None if driver.sw_gas is None else
+        gas_optics_from_jax(driver.sw_gas, device),
+        None if driver.solar is None else solar_from_jax(driver.solar,
+                                                         device),
+        cloud_optics=cloud_optics,
+        num_subcolumns=int(driver.num_subcolumns),
+        cloud_seed=int(driver.cloud_seed), sw_solver=driver.sw_solver,
+        disort_streams=int(driver.disort_streams))
+
+
 def atmosphere_from_jax(atm) -> Atmosphere:
-    """The port's (numpy) Atmosphere from a JAX ``Atmosphere``: the fields
-    the clear-sky aerosol-free slice reads, plus its clean/clear flags."""
+    """The port's (numpy) Atmosphere from a JAX ``Atmosphere``, aerosols,
+    clouds and the clean/clear flags included."""
     def host(v):
         if v is None or isinstance(v, bool):
             return v

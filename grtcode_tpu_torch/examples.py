@@ -12,19 +12,27 @@ the SW band 1-50,000 cm-1 at 1.0 with line_sample, and B = 32 columns of
 the catalogs and batch are identical; ``smoke`` shrinks the line counts
 64x and the grids 8x.
 
-:func:`golden_case` builds the clean, clear case of the end-to-end
-reference-C golden (tests/data/driver_golden.txt) from the input files
+:func:`allsky_like` adds the other two sky tiers to that configuration:
+Angstrom aerosols, an ERA5-like cloud field drawn into stochastic
+subcolumns with synthetic Pade optics, and half the columns at night.
+
+:func:`golden_case` builds the end-to-end reference-C golden's case
+(tests/data/driver_golden.txt) from the input files
 ``tools/goldens/driver_inputs.write_inputs`` writes, through the port's own
-file readers.
+file readers: clean and clear, or with its aerosols and its fixed-condensate
+clouds.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
 import torch
 
 from . import constants
+from .clouds.lib import CloudOpticsLib, band_to_grid, ice_particle_size
+from .clouds.pade import PadeCloudOptics, synthetic_pade_table
 from .framework.atmosphere import Atmosphere
 from .framework.driver import RadiationDriver
 from .gas_optics.continua import OzoneContinuum, WaterVaporContinuum
@@ -32,6 +40,7 @@ from .gas_optics.gas_optics import GasOptics
 from .gas_optics.hitran import synthetic_catalog
 from .gas_optics.molecules import CfcId, CiaId
 from .gas_optics.xsec import CrossSectionTable
+from .optics import Optics
 from .solvers.solar_flux import SolarFlux
 from .spectral import SpectralGrid
 
@@ -43,6 +52,11 @@ SW_LINES = {1: 40000, 2: 10000, 3: 10000, 7: 4000}
 
 SURFACE_ALBEDO = 0.15   # the benchmark's grey shortwave albedo
 SURFACE_DT = 1.5        # surface temperature above the bottom level [K]
+
+# Hydrostatic layer thickness, as the ERA5 app computes it.
+GAS_CONSTANT = 8.314462     # [J mol-1 K-1]
+MOLAR_MASS_KG = 28.9647e-3  # dry air [kg mol-1]
+GRAVITY = 9.81              # [m s-2]
 
 
 def rfmip_like(smoke: bool = False, batch_size: int | None = None, *,
@@ -154,15 +168,139 @@ def atmosphere(batch: dict) -> Atmosphere:
         albedo=np.full((B, 2), SURFACE_ALBEDO))
 
 
+def allsky_like(smoke: bool = False, *, device):
+    """(RadiationDriver, Atmosphere) of the all-sky step: the gas optics,
+    solar spectrum and batch of :func:`rfmip_like` (line_sample at LW 0.1)
+    with, from fixed seeds,
+
+    * an Angstrom aerosol profile (the reference-C golden's shape stretched
+      to 54 layers, alpha 1.48, each column scaled by 0.5-1.5);
+    * an ERA5-like cloud field: a liquid deck at 700-900 mb with cloud
+      fraction 0.3-1.0 and LWC up to 0.3 g m-3, cirrus at 200-350 mb with
+      IWC up to 0.02 g m-3, hydrostatic layer thickness;
+    * every odd column at night (cos zenith -0.9 to 0), so day compaction
+      is on the path;
+    * synthetic Pade liquid and ice tables (16 bands over 1-50,000 cm-1,
+      seeds 0 and 1) drawn into one stochastic subcolumn per column.
+    """
+    lw_gas, sw_gas, solar, batch, B, nlayers = rfmip_like(smoke,
+                                                          device=device)
+    rng = np.random.default_rng(4242)
+    s = (np.arange(nlayers) + 0.5) / nlayers
+    scale = rng.uniform(0.5, 1.5, (B, 1))
+    p_lev = batch["p_lev"]
+    p_lay = 0.5 * (p_lev[:, :-1] + p_lev[:, 1:])
+    t_lev = batch["t_lev"]
+    t_lay = 0.5 * (t_lev[:, :-1] + t_lev[:, 1:])
+    thickness = (np.abs(np.log(p_lev[:, :-1]) - np.log(p_lev[:, 1:]))
+                 * t_lay * GAS_CONSTANT) / (MOLAR_MASS_KG * GRAVITY)
+    liquid = (p_lay >= 700.0) & (p_lay <= 900.0)
+    cirrus = (p_lay >= 200.0) & (p_lay <= 350.0)
+    mu = batch["mu"].copy()
+    mu[1::2] = -rng.uniform(0.0, 0.9, mu[1::2].shape)
+    atm = dataclasses.replace(
+        atmosphere(batch), cos_zenith=mu, clean=False, clear=False,
+        aerosol_optical_depth_1um=scale * 0.28 * np.exp(
+            -0.5 * ((s - 0.85) / 0.13) ** 2),
+        aerosol_angstrom_exponent=1.48,
+        aerosol_single_scatter_albedo=np.broadcast_to(
+            0.88 + 0.06 * np.sin(3.0 * s), (B, nlayers)).copy(),
+        aerosol_asymmetry_factor=np.broadcast_to(
+            0.55 + 0.15 * s, (B, nlayers)).copy(),
+        cloud_fraction=np.where(liquid | cirrus,
+                                rng.uniform(0.3, 1.0, (B, nlayers)), 0.0),
+        liquid_water_content=np.where(
+            liquid, rng.uniform(0.0, 0.3, (B, nlayers)), 0.0),
+        ice_water_content=np.where(
+            cirrus, rng.uniform(0.0, 0.02, (B, nlayers)), 0.0),
+        layer_thickness=thickness)
+    clouds = CloudOpticsLib(
+        liquid=synthetic_pade_table(nbnd=16, w0=1.0, wn=50000.0, seed=0,
+                                    device=device),
+        ice=synthetic_pade_table(nbnd=16, w0=1.0, wn=50000.0, seed=1,
+                                 device=device))
+    driver = RadiationDriver(lw_gas, sw_gas, solar,
+                             cloud_optics=clouds.driver_callback(),
+                             num_subcolumns=1)
+    return driver, atm
+
+
+def _fixed_cloud_optics(inputs, lw_grid, sw_grid, device):
+    """The golden's cloud callback: the fixed (ql, qi) profile of
+    ``driver_inputs.clouds()`` in place of a stochastic sample, through the
+    Pade tables and ``band_to_grid``, with the reference's gap at each
+    interior band boundary replayed (tests/test_driver_golden.py's
+    ``ref_gap_keep``)."""
+    pade, cld = inputs["pade"], inputs["clouds"]
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                               device=device)
+
+    def table(tb):
+        return PadeCloudOptics.from_arrays(
+            tb["band_lims"], tb["sizereg"], tb["sizeref"], tb["ext_p"],
+            tb["ext_q"], tb["ssa_p"], tb["ssa_q"], tb["asy_p"], tb["asy_q"],
+            device=device)
+
+    liq_tb, ice_tb = table(pade["liquid"]), table(pade["ice"])
+    t_lay = f32(0.5 * (inputs["t"][:-1] + inputs["t"][1:]))
+    thick = f32(cld["thickness"])
+    rice = ice_particle_size(t_lay) / 2.0
+    rliq = torch.full_like(rice, 10.0)
+    liq = liq_tb.evaluate(f32(cld["ql"]), rliq)
+    ice = ice_tb.evaluate(f32(cld["qi"]), rice)
+
+    def ref_gap_keep(tb, grid):
+        """(nw,) 0/1: the one grid point whose pseudo-band left edge is
+        the last below each interior band boundary gets no cloud optics in
+        the reference (its upper_bound returns the last index <= target)."""
+        centers = grid.w0 + np.arange(grid.n) * grid.dw
+        ledge = np.empty(grid.n)
+        ledge[1:] = centers[1:] - 0.5 * grid.dw
+        ledge[0] = max(centers[0] - grid.dw, 0.0)
+        keep = np.ones(grid.n, np.float32)
+        for e in np.asarray(tb["band_lims"][0][1:], np.float64):
+            j = int(np.searchsorted(ledge, e, side="right")) - 1
+            if 0 <= j < grid.n and ledge[j] < e:
+                keep[j] = 0.0
+        return f32(keep)
+
+    gaps = {(ph, band): ref_gap_keep(pade[ph], g) for ph in ("liquid", "ice")
+            for band, g in (("lw", lw_grid), ("sw", sw_grid))}
+
+    def optics(vals, tb, w, keep):
+        e, s, g = (band_to_grid(v, tb.band_lims, w) * keep for v in vals)
+        return Optics(tau=(e * thick[:, None])[None], omega=s[None],
+                      g=g[None])
+
+    def callback(cloud_args, key, w_lw, w_sw):
+        out = [optics(liq, liq_tb, w_lw, gaps[("liquid", "lw")]),
+               optics(ice, ice_tb, w_lw, gaps[("ice", "lw")])]
+        if w_sw is None:
+            return out[0], out[1], None, None
+        return (out[0], out[1],
+                optics(liq, liq_tb, w_sw, gaps[("liquid", "sw")]),
+                optics(ice, ice_tb, w_sw, gaps[("ice", "sw")]))
+
+    return callback
+
+
 def golden_case(directory: str, inputs: dict, lw_grid: SpectralGrid,
-                sw_grid: SpectralGrid, *, device):
-    """(RadiationDriver, Atmosphere) of the driver golden's CSAF case.
+                sw_grid: SpectralGrid, *, device, sky: str = "clear"):
+    """(RadiationDriver, Atmosphere) of the driver golden's case.
 
     ``directory`` holds the files ``driver_inputs.write_inputs`` wrote
     (HITRAN .par, MT-CKD and O3 continua, CFC-11/12 and N2-N2 / O2-N2 CIA
     cross sections, solar spectrum) and ``inputs`` is the atmosphere it
-    returned.
+    returned.  ``sky="clear"`` is the clean, clear case (the CSAF rows);
+    ``sky="all"`` also needs ``inputs["aerosol"]``, ``inputs["clouds"]``
+    and ``inputs["pade"]`` (``driver_inputs.aerosol()``, ``clouds()`` and
+    ``pade_tables()``) and adds the aerosols and the fixed-condensate
+    clouds, so all three tiers (every row of the golden) are computed.
     """
+    if sky not in ("clear", "all"):
+        raise ValueError(f"sky={sky!r}: 'clear' or 'all'")
     def path(*name):
         return os.path.join(directory, *name)
 
@@ -195,4 +333,19 @@ def golden_case(directory: str, inputs: dict, lw_grid: SpectralGrid,
         cos_zenith=np.array([a["mu"]]),
         total_solar_irradiance=np.array([a["tsi"]]),
         albedo_grid=a["alb_w"], albedo=a["alb"][None])
+    if sky == "all":
+        aero, cld = a["aerosol"], a["clouds"]
+        driver.cloud_optics = _fixed_cloud_optics(a, lw_grid, sw_grid,
+                                                  device)
+        atm = dataclasses.replace(
+            atm, clean=False, clear=False,
+            aerosol_optical_depth_1um=aero["tau1um"][None],
+            aerosol_angstrom_exponent=aero["alpha"],
+            aerosol_single_scatter_albedo=aero["omega"][None],
+            aerosol_asymmetry_factor=aero["g"][None],
+            cloud_fraction=((cld["ql"] + cld["qi"]) > 0)
+            .astype(np.float64)[None],
+            liquid_water_content=cld["ql"][None],
+            ice_water_content=cld["qi"][None],
+            layer_thickness=cld["thickness"][None])
     return driver, atm

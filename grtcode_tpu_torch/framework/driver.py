@@ -1,17 +1,26 @@
-"""The radiation driver, clear-sky aerosol-free tier (port of
+"""The radiation driver: batched sky-tier fluxes (port of
 grtcode_tpu/framework/driver.py).
 
-One batched step per call: gas optical depth per band (one kernel launch
-per molecule), Rayleigh for the shortwave, the longwave and shortwave
-solvers, and trapezoid-integrated per-level fluxes.  The longwave pass
-always runs; shortwave fluxes count only where cos(zenith) > 0 (the
-full-batch day mask).  With ``spectral_chunks=S > 1`` each band is
-streamed through S spectral blocks one after the other, so a production
-resolution never holds a band-wide tau.
+Sky tiers, as in the JAX package:
+
+  CSAF  clear-sky aerosol-free: gas + Rayleigh
+  CS    clear-sky with Angstrom aerosols
+  AF    all-sky aerosol-free: + stochastic clouds, fluxes averaged over
+        ``num_subcolumns`` subcolumns
+
+Each band's gas optical depth is computed once per spectral block (one
+kernel launch per molecule) and shared by every tier.  The longwave pass
+always runs; the shortwave pass runs only for lit columns (cos zenith > 0):
+a mixed batch is split into its lit and night columns (day compaction), the
+night ones take the longwave-only step, and both are scattered back.  With
+``spectral_chunks=S > 1`` each band is streamed through S spectral blocks
+one after the other, so a production resolution never holds a band-wide
+tau; ``column_chunk`` bounds the columns held at once.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import numpy as np
 import torch
@@ -24,34 +33,82 @@ from ..solvers.rayleigh import rayleigh_tau
 from ..solvers.shortwave import shortwave_fluxes
 from ..solvers.solar_flux import SolarFlux
 from ..utils import curtis_godson as cg
+from ..utils import prng
 from ..utils.interp import (block_trapezoid_weights, interpolate_to_grid_np,
                             trapezoid_uniform)
 from .atmosphere import Atmosphere
 
 DIFFUSE_MU = 0.5  # cosine of the diffuse angle
+# Profiler range around each call of the cloud-optics callback.
+CLOUD_OPTICS_RANGE = "grtcode::cloud_optics"
 
 
 @dataclasses.dataclass
 class FluxResults:
-    """Per-tier fluxes: {"csaf" -> {"rlu"|"rld"|"rsu"|"rsd" -> (B, nlevels)
-    integrated [W m-2] tensors on the driver's device}}."""
+    """Per-tier fluxes: {"csaf"|"cs"|"af" -> {"rlu"|"rld"|"rsu"|"rsd" ->
+    (B, nlevels) integrated [W m-2] or (B, nlevels, nw) spectral tensors on
+    the driver's device}}."""
 
     tiers: dict
     integrated: bool
 
+    _TIER_SUFFIX = {"CSAF": "csaf", "CS": "cs", "AF": "af"}
 
+    def variable(self, name: str) -> np.ndarray:
+        """A reference-named variable as numpy, e.g. RLUTCSAF: TOA upwelling
+        LW clear-sky aerosol-free, shape (B,)."""
+        m = name.upper()
+        band = {"L": "l", "S": "s"}[m[1]]
+        direction = {"U": "u", "D": "d"}[m[2]]
+        rest = m[3:]
+        level = None
+        if rest.startswith("T"):
+            level, rest = 0, rest[1:]
+        elif rest.startswith("S") and rest not in ("CS", "CSAF"):
+            level, rest = -1, rest[1:]
+        if rest not in self._TIER_SUFFIX:
+            # Unsuffixed names (RLU, RSDT, ...) are the full-sky (aerosols
+            # + clouds) slots, which the driver does not compute.
+            raise KeyError(
+                f"{name}: no '{rest}' sky tier — the driver produces "
+                "CSAF/CS/AF variables only")
+        data = self.tiers[self._TIER_SUFFIX[rest]][f"r{band}{direction}"]
+        return (data[:, level] if level is not None else data).cpu().numpy()
+
+
+def _take(tree, idx):
+    """Rows ``idx`` (a device index tensor) of every tensor in a nested
+    dict."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _take(v, idx) for k, v in tree.items()}
+    return tree.index_select(0, idx)
+
+
+@dataclasses.dataclass
 class RadiationDriver:
-    """Holds the per-band gas optics + solar spectrum and runs the
-    clear-sky aerosol-free tier on their device."""
+    """Holds the per-band gas optics, the solar spectrum and the cloud
+    optics, and runs the sky tiers on the gas optics' device.
 
-    def __init__(self, lw_gas: GasOptics, sw_gas: GasOptics | None = None,
-                 solar: SolarFlux | None = None,
-                 sw_solver: str = "two_stream"):
-        self.lw_gas = lw_gas
-        self.sw_gas = sw_gas
-        self.solar = solar
-        self.sw_solver = sw_solver
-        self.device = lw_gas.device
+    ``cloud_optics`` is the all-sky tier's callback, ``(cloud_args, key,
+    w_lw, w_sw) -> (liq_lw, ice_lw, liq_sw, ice_sw)`` Optics with (B,
+    nlayers, nw) fields (``CloudOpticsLib.driver_callback()`` makes one);
+    ``key`` is a (2,) :mod:`..utils.prng` key, one per subcolumn.
+    """
+
+    lw_gas: GasOptics
+    sw_gas: GasOptics | None = None
+    solar: SolarFlux | None = None
+    cloud_optics: Callable | None = None
+    num_subcolumns: int = 1
+    cloud_seed: int = 0
+    sw_solver: str = "two_stream"
+    disort_streams: int = 16
+    device: torch.device = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        self.device = self.lw_gas.device
 
     def _surface_spectra(self, atm: Atmosphere):
         """Emissivity / albedo on the solver grids (linear interpolation,
@@ -78,149 +135,282 @@ class RadiationDriver:
     def run(self, atm: Atmosphere, integrated: bool = True, mesh=None,
             column_chunk: int | None = None, col_index=None,
             spectral_chunks: int | None = None) -> FluxResults:
-        """The clear-sky aerosol-free fluxes of the batch.
+        """Every sky tier the atmosphere asks for: ``csaf`` always, ``cs``
+        unless ``atm.clean``, ``af`` unless ``atm.clear``.
 
-        ``spectral_chunks`` streams each band through that many spectral
-        blocks, one after the other: the block is ``ceil(n / S)`` rounded
-        up to the band's ``block_quantum``, the per-column surface spectra
-        and the solar spectrum are zero-padded to S blocks, and each
-        block's fluxes are reduced with its exact trapezoid weights and
-        summed.  ``col_index`` only keys the cloudy tier's subcolumn draws
-        and has no effect here.  Everything this slice does not port
-        raises :class:`NotImplementedError` naming its ROADMAP item.
+        ``integrated=False`` returns (B, nlevels, nw) spectra.
+        ``column_chunk`` runs the batch in slices of that many columns and
+        concatenates them on the device.  ``col_index`` gives each column's
+        global id (``arange(B)`` by default), which keys its cloud
+        subcolumns, so a chunked or compacted run draws the same clouds as
+        the whole batch.  ``spectral_chunks`` streams each band through
+        that many blocks: ``ceil(n / S)`` rounded up to the band's
+        ``block_quantum``, each reduced with its exact trapezoid weights
+        (integrated output only).  ``mesh`` and ``sw_solver="disort"``
+        raise :class:`NotImplementedError` naming their ROADMAP item.
         """
         if mesh is not None:
             raise NotImplementedError(
                 "mesh: multi-GPU runs are ROADMAP queue 1, O6")
-        if column_chunk is not None:
-            raise NotImplementedError(
-                "column_chunk: column chunking is ROADMAP queue 1, O2")
-        S = 1 if spectral_chunks is None else int(spectral_chunks)
-        if S < 1:
-            raise ValueError(
-                f"spectral_chunks must be >= 1, got {spectral_chunks}")
-        if not integrated:
-            raise NotImplementedError(
-                "integrated=False: spectrally resolved output is ROADMAP "
-                "queue 1, O2")
-        if not atm.clean:
-            raise NotImplementedError(
-                "aerosols: the clear-sky (CS) tier is ROADMAP queue 1, O2")
-        if not atm.clear:
-            raise NotImplementedError(
-                "clouds: the all-sky (AF) tier is ROADMAP queue 1, O3")
         if self.sw_solver != "two_stream":
             raise NotImplementedError(
                 f"sw_solver={self.sw_solver!r}: DISORT is ROADMAP queue 1, "
                 "O4")
+        S = 1 if spectral_chunks is None else int(spectral_chunks)
+        if S < 1:
+            raise ValueError(
+                f"spectral_chunks must be >= 1, got {spectral_chunks}")
+        if S > 1 and not integrated:
+            raise ValueError("spectral_chunks streams serially with "
+                             "integrated output only")
+        if not atm.clear and self.cloud_optics is None:
+            raise ValueError("cloudy atmosphere but no cloud_optics")
+        ids = (np.arange(atm.batch) if col_index is None
+               else np.asarray(col_index))
+        if column_chunk is not None and atm.batch > column_chunk:
+            parts = []
+            for lo in range(0, atm.batch, column_chunk):
+                idx = np.arange(lo, min(lo + column_chunk, atm.batch))
+                parts.append(self.run(atm.subset(idx), integrated=integrated,
+                                      col_index=ids[idx],
+                                      spectral_chunks=spectral_chunks))
+            return FluxResults(
+                tiers={t: {k: torch.cat([r.tiers[t][k] for r in parts])
+                           for k in parts[0].tiers[t]}
+                       for t in parts[0].tiers},
+                integrated=integrated)
 
+        col, cloud_args = self._inputs(atm, ids)
+        mu = (None if atm.cos_zenith is None
+              else np.asarray(atm.cos_zenith, np.float64))
+        with_sw = (self.sw_gas is not None and mu is not None
+                   and bool(np.any(mu > 0.0)))
+        step = dict(clean=atm.clean, clear=atm.clear, integrated=integrated,
+                    S=S)
+        if with_sw and not np.all(mu > 0.0):
+            # Day compaction: the lit columns run LW + SW, the night ones
+            # LW only, and both scatter back into their rows.
+            dev = self.device
+            lit = torch.as_tensor(np.flatnonzero(mu > 0.0), device=dev)
+            night = torch.as_tensor(np.flatnonzero(~(mu > 0.0)), device=dev)
+            out_lit = self._step(_take(col, lit), _take(cloud_args, lit),
+                                 with_sw=True, **step)
+            out_night = self._step(_take(col, night),
+                                   _take(cloud_args, night), with_sw=False,
+                                   **step)
+            out = {}
+            for t, fluxes in out_lit.items():
+                out[t] = {}
+                for k, a_lit in fluxes.items():
+                    full = torch.zeros((atm.batch,) + a_lit.shape[1:],
+                                       dtype=a_lit.dtype, device=dev)
+                    full[lit] = a_lit
+                    full[night] = out_night[t][k]
+                    out[t][k] = full
+        else:
+            out = self._step(col, cloud_args, with_sw=with_sw, **step)
+        return FluxResults(tiers=out, integrated=integrated)
+
+    def _inputs(self, atm: Atmosphere, ids):
+        """The batch's device tensors: the column state, and the cloud
+        state with the columns' global ids (None for a clear sky)."""
         dev = self.device
-        f32 = torch.float32
 
         def t(a):
-            return torch.as_tensor(np.asarray(a, np.float64), dtype=f32,
-                                   device=dev)
+            return torch.as_tensor(np.array(a, np.float64),
+                                   dtype=torch.float32, device=dev)
 
         def vmr(ppmv, keep=None):
             return {k: t(np.asarray(v, np.float64) * 1e-6)
                     for k, v in ppmv.items() if keep is None or k in keep}
 
-        def blocks(gas):
-            """(block size, block starts) of a band: the whole band
-            unstreamed."""
-            n = gas.grid.n
-            if S == 1:
-                return n, [0]
-            q = gas.block_quantum
-            size = -(-(-(-n // S)) // q) * q
-            return size, [s * size for s in range(S)]
+        emis, albedo = self._surface_spectra(atm)
+        col = {
+            "p_lev": t(atm.level_pressure),
+            "t_lev": t(atm.level_temperature),
+            "t_lay": t(atm.layer_temperature),
+            "t_surf": t(atm.surface_temperature),
+            "emis": t(emis),
+            "vmr_lw": vmr(atm.ppmv, self.lw_gas.molecules),
+            "cfc_vmr": vmr(atm.cfc_ppmv),
+            "cia_vmr": vmr(atm.cia_ppmv),
+        }
+        if self.sw_gas is not None:
+            col.update({
+                "mu": t(atm.cos_zenith if atm.cos_zenith is not None
+                        else -np.ones(atm.batch)),
+                "tsi": t(atm.total_solar_irradiance
+                         if atm.total_solar_irradiance is not None
+                         else np.zeros(atm.batch)),
+                "albedo": t(albedo),
+                "vmr_sw": vmr(atm.ppmv, self.sw_gas.molecules),
+            })
+        if not atm.clean:
+            col.update({
+                "aero_tau1um": t(atm.aerosol_optical_depth_1um),
+                "aero_alpha": t(np.broadcast_to(
+                    np.asarray(atm.aerosol_angstrom_exponent, np.float64),
+                    (atm.batch,))),
+                "aero_omega": t(atm.aerosol_single_scatter_albedo),
+                "aero_g": t(atm.aerosol_asymmetry_factor),
+            })
+        cloud_args = None
+        if not atm.clear:
+            p = np.asarray(atm.level_pressure, np.float64)
+            cloud_args = {
+                "col_index": torch.as_tensor(np.asarray(ids, np.int64),
+                                             device=dev),
+                "cloud_fraction": t(atm.cloud_fraction),
+                "liquid_water_content": t(atm.liquid_water_content),
+                "ice_water_content": t(atm.ice_water_content),
+                "layer_thickness": t(atm.layer_thickness),
+                "layer_pressure": t(0.5 * (p[:, :-1] + p[:, 1:])),
+                "t_lay": t(atm.layer_temperature),
+            }
+        return col, cloud_args
 
-        def spectrum(a, size, count):
-            """A (B, n) host spectrum on the device, zero-padded to the
-            blocks' total width."""
-            a = np.asarray(a, np.float64)
-            return t(np.pad(a, ((0, 0), (0, size * count - a.shape[-1]))))
+    @staticmethod
+    def _blocks(gas, S):
+        """(block size, block starts) of a band: the whole band unstreamed,
+        else ``ceil(n / S)`` rounded up to the band's block quantum."""
+        n = gas.grid.n
+        if S == 1:
+            return n, [0]
+        q = gas.block_quantum
+        size = -(-(-(-n // S)) // q) * q
+        return size, [s * size for s in range(S)]
 
-        def integrate(fx, grid, start, size):
+    def _step(self, col, cloud_args, clean: bool, clear: bool,
+              integrated: bool, with_sw: bool, S: int):
+        """Every tier on one batch, summed over its S spectral blocks.
+        ``with_sw=False`` is the longwave-only step of night columns: its
+        shortwave fluxes are zeros (shaped as the SW band's spectra in
+        spectral output)."""
+        dev = self.device
+        pad = torch.nn.functional.pad
+        size_lw, starts_lw = self._blocks(self.lw_gas, S)
+        col = dict(col, emis=pad(col["emis"],
+                                 (0, size_lw * S - col["emis"].shape[-1])))
+        size_sw, starts_sw, sol = None, [None] * S, None
+        if with_sw:
+            size_sw, starts_sw = self._blocks(self.sw_gas, S)
+            col["albedo"] = pad(col["albedo"],
+                                (0, size_sw * S - col["albedo"].shape[-1]))
+            sol = self.solar.incident_flux
+            sol = pad(sol, (0, size_sw * S - sol.shape[-1]))
+        keys = None
+        if not clear:
+            keys = prng.split(prng.prng_key(self.cloud_seed, dev),
+                              self.num_subcolumns)
+        total = None
+        for start_lw, start_sw in zip(starts_lw, starts_sw):
+            block = self._core(col, cloud_args, keys, clean, clear,
+                               integrated, S, start_lw, size_lw, start_sw,
+                               size_sw, sol)
+            total = block if total is None else {
+                t: {k: total[t][k] + v for k, v in fx.items()}
+                for t, fx in block.items()}
+        return total
+
+    def _core(self, col, cloud_args, keys, clean, clear, integrated, S,
+              start_lw, size_lw, start_sw, size_sw, sol):
+        """Every tier on the spectral block [start, start + size) of each
+        band (the whole band unstreamed); ``start_sw`` None runs the
+        longwave only."""
+        dev = self.device
+        lwg = self.lw_gas.grid
+        with_sw = start_sw is not None
+
+        def reduce(fx, grid, start, size):
+            if not integrated:
+                return fx
             if S == 1:
                 return trapezoid_uniform(fx, grid.dw)
             return (fx * block_trapezoid_weights(start, size, grid.n,
                                                  grid.dw, dev)).sum(-1)
 
-        emis_np, albedo_np = self._surface_spectra(atm)
-        p_lev = t(atm.level_pressure)
-        t_lev = t(atm.level_temperature)
-        t_surf = t(atm.surface_temperature)
-        t_lay = t(atm.layer_temperature)
-        cfc_vmr = vmr(atm.cfc_ppmv)
-        cia_vmr = vmr(atm.cia_ppmv)
+        def window(start, size):
+            return {} if S == 1 else dict(block_start=start, block_size=size)
 
-        lwg = self.lw_gas.grid
-        vmr_lw = vmr(atm.ppmv, self.lw_gas.molecules)
-        size_lw, starts_lw = blocks(self.lw_gas)
-        emis = spectrum(emis_np, size_lw, len(starts_lw))
-        rlu = rld = 0.0
-        for start in starts_lw:
-            window = ({} if S == 1 else
-                      dict(block_start=start, block_size=size_lw))
-            tau_lw = self.lw_gas.optical_depth(
-                p_lev, t_lev, vmr_lw, cfc_vmr=cfc_vmr, cia_vmr=cia_vmr,
-                **window)
-            gas_lw = Optics.from_tau(tau_lw)
-            flu, fld = longwave_fluxes(
-                gas_lw.tau, gas_lw.omega, t_surf, t_lay, t_lev,
-                emis[:, start:start + size_lw],
-                lwg.wavenumbers(dev, start, size_lw))
-            del tau_lw, gas_lw
-            rlu = rlu + integrate(flu, lwg, start, size_lw)
-            rld = rld + integrate(fld, lwg, start, size_lw)
-            del flu, fld
+        w_lw = lwg.wavenumbers(dev, start_lw, size_lw)
+        emis = col["emis"][:, start_lw:start_lw + size_lw]
+        tau_lw = self.lw_gas.optical_depth(
+            col["p_lev"], col["t_lev"], col["vmr_lw"],
+            cfc_vmr=col["cfc_vmr"], cia_vmr=col["cia_vmr"],
+            **window(start_lw, size_lw))
+        gas_lw = Optics.from_tau(tau_lw)
+        del tau_lw
 
-        mu_host = atm.cos_zenith
-        with_sw = (self.sw_gas is not None and mu_host is not None
-                   and bool(np.any(np.asarray(mu_host) > 0.0)))
-        if not with_sw:
-            zero = torch.zeros_like(rlu)
-            return FluxResults(
-                tiers={"csaf": {"rlu": rlu, "rld": rld, "rsu": zero,
-                                "rsd": zero.clone()}},
-                integrated=True)
-
-        swg = self.sw_gas.grid
-        vmr_sw = vmr(atm.ppmv, self.sw_gas.molecules)
-        size_sw, starts_sw = blocks(self.sw_gas)
-        albedo = spectrum(albedo_np, size_sw, len(starts_sw))
-        sol = self.solar.incident_flux
-        sol = torch.nn.functional.pad(
-            sol, (0, size_sw * len(starts_sw) - sol.shape[-1]))
-        n_air = cg.number_densities(p_lev * constants.MB_TO_ATM)
-        mu_raw = t(mu_host)
-        tsi = t(atm.total_solar_irradiance
-                if atm.total_solar_irradiance is not None
-                else np.zeros(atm.batch))
-        mu = torch.clamp(mu_raw, min=1e-6)
-        day = (mu_raw > 0.0).to(f32)[:, None]
-        rsu = rsd = 0.0
-        for start in starts_sw:
-            window = ({} if S == 1 else
-                      dict(block_start=start, block_size=size_sw))
+        w_sw = gasray_sw = None
+        if with_sw:
+            swg = self.sw_gas.grid
+            w_sw = swg.wavenumbers(dev, start_sw, size_sw)
+            albedo = col["albedo"][:, start_sw:start_sw + size_sw]
+            sol_block = sol[start_sw:start_sw + size_sw]
+            mu = torch.clamp(col["mu"], min=1e-6)
             tau_sw = self.sw_gas.optical_depth(
-                p_lev, t_lev, vmr_sw, cfc_vmr=cfc_vmr, cia_vmr=cia_vmr,
-                **window)
-            ray = rayleigh_tau(n_air, swg.wavenumbers(dev, start, size_sw))
-            gasray = combine([
+                col["p_lev"], col["t_lev"], col["vmr_sw"],
+                cfc_vmr=col["cfc_vmr"], cia_vmr=col["cia_vmr"],
+                **window(start_sw, size_sw))
+            ray = rayleigh_tau(
+                cg.number_densities(col["p_lev"] * constants.MB_TO_ATM), w_sw)
+            gasray_sw = combine([
                 Optics.from_tau(tau_sw),
                 Optics(ray, torch.ones_like(ray), torch.zeros_like(ray))])
             del tau_sw, ray
-            alb = albedo[:, start:start + size_sw]
-            fsu, fsd = shortwave_fluxes(
-                gasray.tau, gasray.omega, gasray.g, mu,
-                torch.full_like(mu, DIFFUSE_MU), alb, alb, tsi,
-                sol[start:start + size_sw])
-            del gasray
-            rsu = rsu + integrate(fsu, swg, start, size_sw) * day
-            rsd = rsd + integrate(fsd, swg, start, size_sw) * day
-            del fsu, fsd
-        return FluxResults(
-            tiers={"csaf": {"rlu": rlu, "rld": rld, "rsu": rsu, "rsd": rsd}},
-            integrated=True)
+
+        def both(opt_lw, opt_sw):
+            flu, fld = longwave_fluxes(opt_lw.tau, opt_lw.omega,
+                                       col["t_surf"], col["t_lay"],
+                                       col["t_lev"], emis, w_lw)
+            out = {"rlu": reduce(flu, lwg, start_lw, size_lw),
+                   "rld": reduce(fld, lwg, start_lw, size_lw)}
+            del flu, fld
+            if with_sw:
+                fsu, fsd = shortwave_fluxes(
+                    opt_sw.tau, opt_sw.omega, opt_sw.g, mu,
+                    torch.full_like(mu, DIFFUSE_MU), albedo, albedo,
+                    col["tsi"], sol_block)
+                out["rsu"] = reduce(fsu, swg, start_sw, size_sw)
+                out["rsd"] = reduce(fsd, swg, start_sw, size_sw)
+            else:
+                # Night columns: zeros, SW-band spectra in spectral output.
+                shape = out["rlu"].shape
+                if self.sw_gas is not None and not integrated:
+                    shape = shape[:-1] + (self.sw_gas.grid.n,)
+                out["rsu"] = torch.zeros(shape, device=dev)
+                out["rsd"] = torch.zeros(shape, device=dev)
+            return out
+
+        def aerosol_optics(w):
+            """Angstrom-exponent spectral aerosol optics: tau(lambda) =
+            tau_1um * lambda_um^-alpha, grey ssa and asymmetry."""
+            lam_um = 1e4 / w
+            tau = col["aero_tau1um"][:, :, None] * \
+                lam_um[None, None, :] ** (-col["aero_alpha"][:, None, None])
+            return Optics(tau, col["aero_omega"][:, :, None].expand_as(tau),
+                          col["aero_g"][:, :, None].expand_as(tau))
+
+        tiers = {"csaf": both(gas_lw, gasray_sw)}
+        if not clean:
+            tiers["cs"] = both(
+                combine([gas_lw, aerosol_optics(w_lw)]),
+                combine([gasray_sw, aerosol_optics(w_sw)]) if with_sw
+                else None)
+        if not clear:
+            # One cloud realization per subcolumn key, the same in every
+            # spectral block; fluxes averaged over the subcolumns.
+            subs = []
+            for key in keys:
+                with torch.profiler.record_function(CLOUD_OPTICS_RANGE):
+                    liq_lw, ice_lw, liq_sw, ice_sw = self.cloud_optics(
+                        cloud_args, key, w_lw, w_sw)
+                subs.append(both(
+                    combine([gas_lw, liq_lw, ice_lw]),
+                    combine([gasray_sw, liq_sw, ice_sw]) if with_sw
+                    else None))
+                del liq_lw, ice_lw, liq_sw, ice_sw
+            tiers["af"] = subs[0] if len(subs) == 1 else {
+                k: torch.stack([s[k] for s in subs]).mean(0)
+                for k in subs[0]}
+        return tiers

@@ -5,15 +5,15 @@
   the production resolution (``lw_method="wavenumber_sweep"``,
   ``lw_res=0.01``);
 * the port's ``RadiationDriver`` CSAF fluxes match the JAX driver's on that
-  atmosphere, and a mixed day/night batch (which the JAX driver splits
-  into lit and night buckets while the port masks the full batch) gives
-  the lit column the same fluxes;
+  atmosphere, and a mixed day/night batch (which both drivers split into
+  lit and night columns) gives the lit column the same fluxes;
 * ``run(spectral_chunks=S)`` streams both bands through S blocks and
   matches the port's unstreamed run and the JAX driver's streamed run, for
   line_sample and wavenumber_sweep; ``block_trapezoid_weights`` matches;
 * the CSAF rows of the reference-C golden (tests/data/driver_golden.txt)
   match through the port's own file readers;
-* everything off the slice raises NotImplementedError;
+* ``mesh`` and DISORT raise NotImplementedError, spectral output with
+  spectral streaming raises ValueError;
 * importing the port loads no JAX.
 """
 import dataclasses
@@ -167,10 +167,9 @@ def test_csaf_fluxes_match_jax_driver(smoke_fluxes, var):
 
 
 def test_mixed_day_night_batch(smoke, smoke_fluxes):
-    """Column 1 lit, the rest night (the JAX driver would split lit and
-    night buckets; the port masks the full batch): longwave unchanged, the
-    lit column's shortwave that of the all-lit JAX run, night columns
-    zero."""
+    """Column 1 lit, the rest night (the lit column runs LW + SW, the
+    night ones LW only): longwave unchanged, the lit column's shortwave
+    that of the all-lit JAX run, night columns zero."""
     _, (lw, sw, sol, batch, _, _) = smoke
     _, want = smoke_fluxes
     atm = examples.atmosphere(batch)
@@ -233,19 +232,12 @@ def tiny():
 
 
 @pytest.mark.parametrize("request_, item", [
-    (dict(mesh=object()), "O6"),
-    (dict(column_chunk=1), "O2"),
-    (dict(integrated=False), "O2"),
-    (dict(clean=False), "O2"),
-    (dict(clear=False), "O3"),
-    (dict(sw_solver="disort"), "O4"),
+    pytest.param(dict(mesh=object()), "O6", id="request_0-O6"),
+    pytest.param(dict(sw_solver="disort"), "O4", id="request_5-O4"),
 ])
 def test_requests_off_the_slice_raise(tiny, request_, item):
     driver, atm = tiny
     kw = dict(request_)
-    if "clean" in kw or "clear" in kw:
-        atm = dataclasses.replace(atm, **kw)
-        kw = {}
     if "sw_solver" in kw:
         driver = RadiationDriver(driver.lw_gas, driver.sw_gas, driver.solar,
                                  sw_solver=kw.pop("sw_solver"))
@@ -260,6 +252,14 @@ def test_tiny_column_runs_and_validates_spectral_chunks(tiny):
     assert float(res["rld"][0, 0]) == 0.0 and float(res["rsd"][0, 0]) > 0
     with pytest.raises(ValueError, match="spectral_chunks"):
         driver.run(atm, spectral_chunks=0)
+
+
+def test_spectral_output_is_not_streamed(tiny):
+    driver, atm = tiny
+    with pytest.raises(ValueError, match="spectral_chunks"):
+        driver.run(atm, integrated=False, spectral_chunks=2)
+    res = driver.run(atm, integrated=False, spectral_chunks=1)
+    assert res.tiers["csaf"]["rsd"].shape == (1, 3, 21)
 
 
 @pytest.mark.parametrize("start,block,n,dw", [

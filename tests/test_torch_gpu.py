@@ -1,7 +1,8 @@
 """The port on an NVIDIA GPU: the CUDA line_sample and bin kernels against
-their plain PyTorch versions, and the clear-sky aerosol-free step on CUDA
-tensors (line_sample, and the spectrally streamed bin-method step) against
-the same step on CPU tensors.
+their plain PyTorch versions, the clear-sky aerosol-free step on CUDA
+tensors (line_sample, and the spectrally streamed bin-method step) and the
+all-sky step against the same steps on CPU tensors, and the cloud draws on
+the card against the CPU's.
 
 Every test is marked ``gpu`` and skips without a GPU.  The file imports no
 JAX, so it also runs where JAX is not installed; ``tests/conftest.py``
@@ -22,6 +23,7 @@ from grtcode_tpu_torch.gas_optics.hitran import synthetic_catalog
 from grtcode_tpu_torch.kernel_bench import census_bins, census_line_sample
 from grtcode_tpu_torch.spectral import SpectralGrid
 from grtcode_tpu_torch.utils import curtis_godson as cg
+from grtcode_tpu_torch.utils import prng
 
 pytestmark = pytest.mark.gpu
 
@@ -235,6 +237,53 @@ def test_csaf_step_on_the_card_matches_the_cpu(cuda, case):
         scale = np.maximum(np.abs(want[var]), 0.01 * np.abs(want[var]).max())
         assert float((np.abs(got[var] - want[var]) / scale).max()) < \
             FLUX_TOL, var
+
+
+@pytest.mark.parametrize("seed", [0, 123456789])
+def test_prng_draws_on_the_card_equal_the_cpu(cuda, seed):
+    """Keys, splits, fold-ins over column ids and uniforms: the same bits
+    on the card as on the CPU."""
+    def draws(device):
+        key = prng.split(prng.prng_key(seed, device), 3)[1]
+        keys = prng.fold_in(key, torch.arange(0, 4000, 7, device=device))
+        kx, kr = prng.split(keys, 2).unbind(-2)
+        return keys, prng.uniform(kx, 54), prng.uniform(kr, 53)
+
+    for got, want in zip(draws(cuda), draws("cpu")):
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), want)
+
+
+def test_allsky_step_on_the_card_matches_the_cpu(cuda):
+    """examples.allsky_like at smoke size (4 columns, 2 at night): 18 K1
+    launches (7 LW + 4 SW lit, 7 LW night), no plain one, and every tier
+    within the CSAF step's bar of the CPU run (CSAF rsu alone differs by
+    2.1e-5 on an H100, so a 1e-5 bar would fail on the tier the CSAF test
+    already holds at 1e-4)."""
+    def fluxes(device):
+        driver, atm = examples.allsky_like(smoke=True, device=device)
+        res = driver.run(atm)
+        return {t: {k: v.cpu().numpy() for k, v in fx.items()}
+                for t, fx in res.tiers.items()}
+
+    k1, plain = (vk.accumulate_voigt.launches,
+                 vk.voigt_line_sample_reference.launches)
+    got = fluxes(cuda)
+    torch.cuda.synchronize()
+    assert vk.accumulate_voigt.launches - k1 == 18
+    assert vk.voigt_line_sample_reference.launches == plain
+    want = fluxes("cpu")
+    assert list(got) == list(want) == ["csaf", "cs", "af"]
+    errs = {}
+    for tier in want:
+        for var in ("rlu", "rld", "rsu", "rsd"):
+            g, w = got[tier][var], want[tier][var]
+            assert g.shape == w.shape == (4, 55)
+            assert np.isfinite(g).all()
+            scale = np.maximum(np.abs(w), 0.01 * np.abs(w).max())
+            errs[f"{tier} {var}"] = float((np.abs(g - w) / scale).max())
+    assert max(errs.values()) < FLUX_TOL, errs
+    assert not np.allclose(got["af"]["rlu"], got["csaf"]["rlu"])
 
 
 # ---------------------------------------------------------------------------
