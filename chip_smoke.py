@@ -4,12 +4,13 @@
     python3 chip_smoke.py
 
 builds the two CUDA kernels from csrc/ with nvcc (K1, line_sample Voigt;
-K2, the bin-method Voigt) and drives the port's three main paths,
+K2, the bin-method Voigt) and drives the port's four main paths,
 ``RadiationDriver(lw_gas, sw_gas, solar).run(atm)`` on a clean, clear
 atmosphere with line_sample at LW 0.1 cm-1 and with the bin method at the
-production LW 0.01 cm-1 streamed through 10 spectral blocks, and the
+production LW 0.01 cm-1 streamed through 10 spectral blocks, the
 all-sky step (aerosols, stochastic clouds, half the columns at night) at
-LW 0.1, in nine phases (one line each):
+LW 0.1, and the CIRC app with both SW solvers, in ten phases (one line
+each):
 
   1. the card: name and power limit as nvidia-smi gives them (on a line
      of their own, then the phase line with the torch / CUDA versions and
@@ -59,7 +60,20 @@ LW 0.1, in nine phases (one line each):
      cloud optics (the ``grtcode::cloud_optics`` range) and the rest, the
      idle share, and K1's bound on the step (one census per launch); (d) column_chunk=8 equal to the whole batch in every
      tier (rtol 2e-6 / atol 1e-6), AF unlike CSAF, night SW exactly 0, the
-     step's cloud draws on the card bit-identical to the CPU's.
+     step's cloud draws on the card bit-identical to the CPU's;
+ 10. the CIRC app (apps.circ.main on case 1) at its default grids (LW
+     1-3,250 at 0.1, SW 1-50,000 at 1.0) on a HITRAN-scale .par written
+     from examples.line_lists (430,000 records): (b) two-stream, timed
+     with the .par parse apart, 14 K1 launches and no plain launch,
+     RSDTCSAF within 1.0 W m-2 of TSI mu0, fluxes finite and non-negative;
+     (c) the same driver with the 16-stream DISORT: one untimed and three
+     timed steps, RSDTCSAF equal to the two-stream's, RSU / RSD within the
+     two-stream band, LW unchanged, a profiled step, peak memory; K1
+     against its plain version on the app's own 54 rows (H2O in each band)
+     at rtol 2e-6 / atol 1e-12; (d) DISORT's analytic cases on the card at
+     tests/test_disort.py's bars, card against CPU (bar 1e-4 of the
+     level's largest flux), and one block of 32 columns timed with its
+     peak memory.
 
 Prints a kernels JSON line and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero without that line; there is no CPU
@@ -112,11 +126,13 @@ def share_of_bound(got, want, rtol, atol):
 def profile_step(step):
     """Device time of one profiled step by kernel (torch.profiler): each
     CUDA kernel of the port's own and its share of the busy time, the
+    kernels launched inside the cloud-optics and DISORT ranges, the
     device's idle share of the step's wall time, and the top kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from grtcode_tpu_torch.framework.driver import CLOUD_OPTICS_RANGE
+    from grtcode_tpu_torch.framework.driver import (CLOUD_OPTICS_RANGE,
+                                                    DISORT_RANGE)
     from grtcode_tpu_torch.gas_optics.gas_optics import LINE_PREP_RANGE
 
     torch.cuda.synchronize()
@@ -127,14 +143,23 @@ def profile_step(step):
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     rows = []
-    prep_ms = prep_span_ms = cloud_ms = 0.0
-    prep_count = cloud_count = 0
+    prep_ms = prep_span_ms = 0.0
+    prep_count = 0
+    # The kernels launched inside each host-side range: every op below the
+    # range's host event adds the kernels it launched itself, so each
+    # kernel counts once.
+    ranged = {CLOUD_OPTICS_RANGE: ["cloud optics", 0.0, 0],
+              DISORT_RANGE: ["DISORT", 0.0, 0]}
+    for e in prof.events():
+        if e.name in ranged and e.device_type != DeviceType.CUDA:
+            ranged[e.name][2] += 1
+            below = list(e.cpu_children)
+            while below:
+                c = below.pop()
+                ranged[e.name][1] += c.self_device_time_total / 1e3
+                below.extend(c.cpu_children)
     for e in prof.key_averages():
-        if e.key == CLOUD_OPTICS_RANGE:
-            # The kernels launched inside the callback (host-side range).
-            if e.device_type != DeviceType.CUDA:
-                cloud_ms += e.device_time_total / 1e3
-                cloud_count += e.count
+        if e.key in ranged:
             continue
         if e.key == LINE_PREP_RANGE:
             # The range appears twice: on the host, whose device time is
@@ -164,10 +189,14 @@ def profile_step(step):
             f"({prep_ms / busy_ms:.1%} of busy) spanning {prep_span_ms:.1f} "
             f"ms on the device" if prep_ms > 0 else
             "line prep: no device time attributed (not measured)")
-    if cloud_count:
-        prep += (f", cloud optics ({cloud_count} calls) {cloud_ms:.1f} ms of "
-                 f"kernels ({cloud_ms / busy_ms:.1%} of busy)")
-    rest_ms = busy_ms - sum(kernel_ms.values()) - prep_ms - cloud_ms
+    for label, ms, count in ranged.values():
+        if count:
+            prep += (f", {label} ({count} calls) {ms:.1f} ms of kernels "
+                     f"({ms / busy_ms:.1%} of busy)")
+    cloud_ms, cloud_count = ranged[CLOUD_OPTICS_RANGE][1:]
+    disort_ms, disort_count = ranged[DISORT_RANGE][1:]
+    rest_ms = busy_ms - sum(kernel_ms.values()) - prep_ms - cloud_ms - \
+        disort_ms
     launches = sum(r[2] for r in rows)
     summary = (f"device busy {busy_ms:.1f} ms of {wall_us / 1e3:.1f} ms wall "
                f"(idle {1 - busy_ms * 1e3 / wall_us:.1%}) in {launches} "
@@ -179,7 +208,8 @@ def profile_step(step):
             "kernel_ms": kernel_ms,
             "line_prep_ms": prep_ms, "line_prep_span_ms": prep_span_ms,
             "line_prep_calls": prep_count, "cloud_optics_ms": cloud_ms,
-            "cloud_optics_calls": cloud_count, "rest_ms": rest_ms,
+            "cloud_optics_calls": cloud_count, "disort_ms": disort_ms,
+            "disort_calls": disort_count, "rest_ms": rest_ms,
             "top": [dict(name=n[:80], ms=v, count=c) for n, v, c in rows[:12]]}
 
 
@@ -1090,6 +1120,336 @@ def phase_allsky(info, dev, card):
     return launches
 
 
+def write_hitran_par(path, lw_grid, sw_grid):
+    """A HITRAN-scale .par file: the line lists of examples.rfmip_like
+    (examples.line_lists: 366,000 LW lines of the 7 CIRC molecules over
+    1-3,250 cm-1 and 64,000 SW lines over 1-50,000 cm-1, the benchmark's
+    seeds) as 160-character HITRAN2012 records, sorted by line center.
+    Returns the number of records."""
+    from tools.goldens.driver_inputs import _record
+    from grtcode_tpu_torch import examples
+
+    recs = []
+    for band in examples.line_lists(lw_grid, sw_grid).values():
+        for mol, p in band.items():
+            cols = [p[k].tolist() for k in ("vnn", "s0", "yair", "yself",
+                                             "en", "n", "d")]
+            recs.extend((v, _record(mol, "1", v, *rest))
+                        for v, *rest in zip(*cols))
+    recs.sort(key=lambda r: r[0])
+    with open(path, "w") as f:
+        f.write("".join(r[1] + "\n" for r in recs))
+    return len(recs)
+
+
+def chandrasekhar_h(omega, mu_eval, n_quad=96, iters=400):
+    """Chandrasekhar's H-function for isotropic scattering, iterated to
+    convergence in float64 (tests/test_disort.py's external oracle)."""
+    x, w = np.polynomial.legendre.leggauss(n_quad)
+    mu, wq = 0.5 * (x + 1.0), 0.5 * w
+    H, s = np.ones(n_quad), np.sqrt(1.0 - omega)
+    for _ in range(iters):
+        H_new = 1.0 / (s + ((0.5 * omega) * (wq * mu * H)[None, :]
+                            / (mu[:, None] + mu[None, :])).sum(axis=1))
+        done = np.max(np.abs(H_new - H)) < 1e-14
+        H = H_new
+        if done:
+            break
+    return 1.0 / (s + ((0.5 * omega) * (wq * mu * H) / (mu_eval + mu)).sum())
+
+
+def disort_analytic_cases(dev):
+    """tests/test_disort.py's analytic cases on ``dev``, at its bars;
+    returns the worst share of each bar."""
+    import torch
+    from grtcode_tpu_torch.solvers.disort import disort_shortwave, \
+        gauss_streams
+
+    mu0, tsi = 0.6, 1361.0
+
+    def full(v, *shape):
+        return torch.full(shape, v, dtype=torch.float32, device=dev)
+
+    def run(tau, omega, g, albedo=0.2, nw=6, nstr=8, nlayers=4):
+        up, dn = disort_shortwave(
+            full(tau, nlayers, nw), full(omega, nlayers, nw),
+            full(g, nlayers, nw), torch.tensor(mu0, device=dev),
+            full(albedo, nw), torch.tensor(tsi, device=dev), full(1.0, nw),
+            nstr=nstr, wchunk=8)
+        return up.cpu().numpy().astype(np.float64), \
+            dn.cpu().numpy().astype(np.float64)
+
+    def rel(a, b):
+        return float((np.abs(a - b) / np.abs(b)).max())
+
+    share = {}
+    up, dn = run(0.0, 0.0, 0.0, albedo=0.3)
+    share["transparent"] = max(rel(dn, tsi * mu0), rel(up, tsi * mu0 * 0.3)) \
+        / 1e-5
+    up, dn = run(0.3, 0.0, 0.0, albedo=0.25, nstr=16)
+    taus = 0.3 * np.arange(5)
+    mu, w = gauss_streams(16)
+    f_sfc = 0.25 * tsi * mu0 * np.exp(-taus[-1] / mu0)
+    expect = f_sfc * np.array([np.sum(w * mu * np.exp(-(taus[-1] - t) / mu))
+                               for t in taus]) / np.sum(w * mu)
+    share["absorption_only"] = max(
+        rel(dn[:, 0], tsi * mu0 * np.exp(-taus / mu0)) / 1e-5,
+        rel(up[-1, 0], f_sfc) / 1e-5, rel(up[:, 0], expect) / 1e-4)
+    up, dn = run(1.0, 1.0, 0.7, albedo=0.0, nstr=16)
+    net = (dn - up)[:, 0]
+    check(0.05 < up[0, 0] / dn[0, 0] < 0.95, "conservative: reflectance")
+    share["conservative"] = rel(net, net[0]) / 5e-4
+    one = run(1.0, 0.8, 0.5, albedo=0.15, nw=4, nstr=8, nlayers=1)
+    two = run(0.5, 0.8, 0.5, albedo=0.15, nw=4, nstr=8, nlayers=2)
+    share["layer_split"] = max(rel(a[[0, -1]], b[[0, -1]])
+                               for a, b in zip(one, two)) / 2e-5
+    for omega, mu_c in ((0.6, 0.5), (0.9, 0.8), (0.99, 0.4)):
+        exact = 1.0 - chandrasekhar_h(omega, mu_c) * np.sqrt(1.0 - omega)
+        nlayers, nw = 60, 2
+        dtau = np.repeat((0.08 * 1.16 ** np.arange(nlayers))[:, None], nw, 1)
+        up, _ = disort_shortwave(
+            torch.as_tensor(dtau, dtype=torch.float32, device=dev),
+            full(omega, nlayers, nw), full(0.0, nlayers, nw),
+            torch.tensor(mu_c, device=dev), full(0.0, nw),
+            torch.tensor(tsi, device=dev), full(1.0, nw), nstr=16,
+            deltam=False, wchunk=2)
+        got = float(up[0, 0]) / (tsi * mu_c)
+        share[f"chandrasekhar_{omega}_{mu_c}"] = abs(got - exact) / (
+            5e-3 * max(exact, 0.05))
+    for case, v in share.items():
+        check(v <= 1.0, f"DISORT {case} on the card: {v:.3f} of its bar")
+    return share
+
+
+def phase_circ_app(info, dev, card):
+    """The CIRC app on the card: the HITRAN-scale .par, the app's default
+    grids, two-stream through ``apps.circ.main``, then the same driver with
+    the 16-stream DISORT, then DISORT's analytic cases and the card against
+    the CPU.  Returns K1's launches on the app's run and the four DISORT
+    steps (one count from 0), and K1's largest error against the plain
+    version on the app's driver."""
+    import dataclasses
+    import torch
+    from tools.goldens import driver_inputs
+    from grtcode_tpu_torch.apps import circ
+    from grtcode_tpu_torch.gas_optics import gas_optics as go
+    from grtcode_tpu_torch.gas_optics import voigt_kernel as vk
+    from grtcode_tpu_torch.solvers.disort import disort_shortwave
+    from grtcode_tpu_torch.spectral import SpectralGrid
+
+    tmp = tempfile.TemporaryDirectory()
+    d = tmp.name
+    t0 = time.perf_counter()
+    driver_inputs.write_inputs(d)
+    par = os.path.join(d, "hitran.par")
+    n_records = write_hitran_par(par, SpectralGrid(1.0, 3250.0, 0.1),
+                                 SpectralGrid(1.0, 50000.0, 1.0))
+    write_s = time.perf_counter() - t0
+
+    def path(name):
+        return os.path.join(d, name)
+
+    argv = [par, path("solar.csv"), "-h2o-ctm", path("h2o_ctm"), "-o3-ctm",
+            path("o3_ctm.csv"), "-CFC-11", path("cfc11.csv"), "-CFC-12",
+            path("cfc12.csv"), "-N2-N2", path("cia_n2n2.csv"), "-O2-N2",
+            path("cia_o2n2.csv"), "-o", ""]
+
+    # The .par parse, timed apart (with each parse's window and line
+    # count), and the driver the app builds.
+    parse_s, parsed, built = [], [], []
+    parse, build_driver = go.parse_par_file, circ.build_driver
+
+    def timed_parse(path, mol_id, w0, wn, **k):
+        t = time.perf_counter()
+        out = parse(path, mol_id, w0, wn, **k)
+        parse_s.append(time.perf_counter() - t)
+        parsed.append((wn, out.num_lines))
+        return out
+
+    def keep_driver(*a, **k):
+        built.append(build_driver(*a, **k))
+        return built[-1]
+
+    go.parse_par_file, circ.build_driver = timed_parse, keep_driver
+    # (b) The app, two-stream, with every launch count starting at 0.
+    vk.accumulate_voigt.launches = 0
+    vk.voigt_line_sample_reference.launches = 0
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = circ.main(argv, device=dev)
+        torch.cuda.synchronize()
+        app_s = time.perf_counter() - t0
+    finally:
+        go.parse_par_file, circ.build_driver = parse, build_driver
+    app_launches = vk.accumulate_voigt.launches
+    check(vk.voigt_line_sample_reference.launches == 0,
+          "the plain version ran in the CIRC app")
+    driver = built[0]
+    mols = {g: len(gas.molecules) for g, gas in
+            (("lw", driver.lw_gas), ("sw", driver.sw_gas))}
+    check(mols == {"lw": 7, "sw": 7}, f"molecules by band {mols}")
+    per_run = mols["lw"] + mols["sw"]
+    check(app_launches == per_run,
+          f"{app_launches} K1 launches in the app, expected {per_run}")
+    lines = {g: sum(n for wn, n in parsed if wn == gas.grid.wn)
+             for g, gas in (("lw", driver.lw_gas), ("sw", driver.sw_gas))}
+    two = {k: v.cpu().numpy().astype(np.float64)
+           for k, v in res.tiers["csaf"].items()}
+    check(list(res.tiers) == ["csaf"], f"tiers {list(res.tiers)}")
+    nlev = two["rlu"].shape[1]
+    for var, v in two.items():
+        check(v.shape == (1, nlev) and np.isfinite(v).all(),
+              f"app {var}: shape {v.shape} or not finite")
+        check((v >= 0).all(), f"app {var}: negative flux")
+    values = {name: float(res.variable(name)[0])
+              for name in circ.CASE1_REFERENCE}
+    check(abs(values["RSDTCSAF"] - 912.79) < 1.0,
+          f"RSDTCSAF {values['RSDTCSAF']:.4f} vs TSI * mu0 912.79")
+
+    # (c) The same driver with the 16-stream DISORT.
+    atm = circ.case1_atmosphere()
+    ddriver = dataclasses.replace(driver, sw_solver="disort",
+                                  disort_streams=16)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    for i in range(4):
+        before = vk.accumulate_voigt.launches
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dres = ddriver.run(atm, integrated=True).tiers["csaf"]
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+        check(vk.accumulate_voigt.launches - before == per_run,
+              f"DISORT step {i}: {vk.accumulate_voigt.launches - before} K1 "
+              f"launches, expected {per_run}")
+    launches = vk.accumulate_voigt.launches
+    check(vk.voigt_line_sample_reference.launches == 0,
+          "the plain version ran in the DISORT steps")
+    peak = torch.cuda.max_memory_allocated()
+    many = {k: v.cpu().numpy().astype(np.float64) for k, v in dres.items()}
+    for var, v in many.items():
+        check(np.isfinite(v).all() and (v >= 0).all(),
+              f"DISORT {var}: not finite or negative")
+    rsdt_rel = abs(many["rsd"][0, 0] - two["rsd"][0, 0]) / two["rsd"][0, 0]
+    check(rsdt_rel < 1e-5, f"DISORT RSDTCSAF vs two-stream: {rsdt_rel:.2e}")
+    band = {}
+    for var in ("rsu", "rsd"):
+        a, b = many[var][0], two[var][0]
+        band[var] = float((np.abs(a - b) / (0.12 * np.abs(b).max()
+                                            + 1e-3)).max())
+        check(band[var] <= 1.0, f"DISORT {var} outside the two-stream band "
+              f"({band[var]:.3f} of it)")
+    for var in ("rlu", "rld"):
+        check(np.array_equal(many[var], two[var]),
+              f"DISORT changed the longwave {var}")
+    ms = 1e3 * float(np.mean(step_s[1:]))
+    breakdown = profile_step(lambda: ddriver.run(atm, integrated=True))
+    disort_share = breakdown.get("disort_ms", 0.0) / breakdown["busy_ms"] \
+        if "busy_ms" in breakdown else None
+    two_ms = cuda_ms(lambda: driver.run(atm, integrated=True), 3)
+    # What DISORT adds to the step, as a share of it.
+    added_share = (ms - two_ms) / ms
+    # K1's bound on the run: the sum of its 14 launches' (one census each).
+    part = {"p_lev": atm.level_pressure, "t_lev": atm.level_temperature,
+            "vmr": dict(atm.ppmv)}
+    k1_bound_ms, bound_by = 0.0, []
+    for gas in (driver.lw_gas, driver.sw_gas):
+        for mol in gas.molecules:
+            prep, _, kw = band_prep(gas, mol, part, dev)
+            b = k1_bound(prep, gas.chunk_ranges[mol], kw)
+            k1_bound_ms += b["bound_ms"]
+            bound_by.append(b["bound_by"])
+            del prep
+    k1_ms = breakdown.get("kernel_ms", {}).get("voigt_line_sample", 0.0)
+    # K1 against the plain version on the app's own driver and case-1
+    # atmosphere: 54 rows, H2O in each band (the SW band at 1.0 cm-1 also
+    # carries the LW lines).  The counts above were read before these.
+    k1_vs_plain = [full_rows_vs_plain(gas, 1, part, dev, kernel_reps=3,
+                                      plain_reps=1)
+                   for gas in (driver.lw_gas, driver.sw_gas)]
+    k1_err = max(r["max_abs_err"] for r in k1_vs_plain)
+
+    # (d) DISORT's analytic cases on the card, and the card against the
+    # CPU on the same optics (one column, 54 layers, 1,024 points).
+    analytic = disort_analytic_cases(dev)
+    rng = np.random.default_rng(10)
+    nl, nw = 54, 1024
+    optics = [torch.as_tensor(a, dtype=torch.float32) for a in (
+        10.0 ** rng.uniform(-6, 2, (nl, nw)), rng.uniform(0, 1, (nl, nw)),
+        rng.uniform(-0.2, 0.9, (nl, nw)), np.float64(atm.cos_zenith[0]),
+        rng.uniform(0, 0.5, nw), np.float64(atm.total_solar_irradiance[0]),
+        rng.uniform(0.5, 1.5, nw))]
+    card_vs_cpu = 0.0
+    for got, want in zip(disort_shortwave(*(a.to(dev) for a in optics)),
+                         disort_shortwave(*optics)):
+        want = want.numpy().astype(np.float64)
+        err = np.abs(got.cpu().numpy() - want) / \
+            np.abs(want).max(axis=-1, keepdims=True)
+        card_vs_cpu = max(card_vs_cpu, float(err.max()))
+    check(card_vs_cpu < 1e-4, f"DISORT card vs CPU: {card_vs_cpu:.2e} of "
+          "the level's largest flux")
+    # One wchunk block at the batched steps' width (32 columns, 54 layers,
+    # 2,048 points, 16 streams): its peak memory bounds what DISORT adds to
+    # a step of 32 lit columns, since the blocks run one after another.
+    batched = [a.expand(32, *a.shape)[..., :2048].contiguous().to(dev)
+               for a in optics[:-1]] + [optics[-1][:2048].to(dev)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    block_ms = cuda_ms(lambda: disort_shortwave(*batched), 1)
+    block_peak = torch.cuda.max_memory_allocated() - base
+    del batched
+    tmp.cleanup()
+
+    info["phase10"] = dict(
+        card=card, records=n_records, lines=lines, write_s=write_s,
+        app_s=app_s, parse_s=sum(parse_s), parses=len(parse_s),
+        app_launches=app_launches, values=values,
+        reference=circ.CASE1_REFERENCE, nw=[driver.lw_gas.grid.n,
+                                            driver.sw_gas.grid.n],
+        disort_step_s=step_s, disort_ms_per_step=ms,
+        two_stream_ms_per_step=two_ms, disort_peak_bytes=peak,
+        disort_share=disort_share, added_share=added_share,
+        profile=breakdown,
+        disort_band_share=band, rsdt_rel=rsdt_rel, launches=launches,
+        k1_ms=k1_ms, k1_bound_ms=k1_bound_ms,
+        k1_bound_by={b: bound_by.count(b) for b in set(bound_by)},
+        k1_vs_plain=k1_vs_plain, analytic_share=analytic,
+        card_vs_cpu=card_vs_cpu, disort_b32_block_ms=block_ms,
+        disort_b32_block_peak_bytes=block_peak)
+    table = ", ".join(
+        f"{k} {v:.2f} (LBLRTM {circ.CASE1_REFERENCE[k]['lblrtm']})"
+        for k, v in values.items())
+    print(f"phase 10 CIRC app ({card}): {n_records} .par records written in "
+          f"{write_s:.1f} s; circ.main (LW {driver.lw_gas.grid.n} + SW "
+          f"{driver.sw_gas.grid.n} points, {lines['lw']} + {lines['sw']} "
+          f"lines) {app_s:.1f} s wall of which the .par parse "
+          f"{sum(parse_s):.1f} s ({len(parse_s)} parses), {app_launches} K1 "
+          f"launches, no plain launch; {table}; 16-stream DISORT step "
+          f"{ms:.1f} ms (steps {[round(v, 3) for v in step_s]} s) against "
+          f"the two-stream step's {two_ms:.1f} ms ({added_share:.1%} of the "
+          f"step added by DISORT), DISORT "
+          f"{breakdown.get('disort_ms', 0.0):.1f} ms of the profiled step's "
+          f"kernels ({disort_share if disort_share is None else f'{disort_share:.1%}'} of busy), "
+          f"peak {peak / 2 ** 30:.2f} GiB, RSDTCSAF within {rsdt_rel:.1e} of "
+          f"the two-stream's, rsu / rsd at {band['rsu']:.3f} / "
+          f"{band['rsd']:.3f} of the two-stream band; profiled step: "
+          f"{breakdown['summary']}; K1 bound on the run {k1_bound_ms:.2f} ms "
+          f"({bound_by.count('operations')} of {per_run} launches by "
+          f"operations; {k1_bound_ms / k1_ms if k1_ms else 0.0:.1%} of it "
+          f"reached); K1 vs plain on the app's 54 rows within rtol 2e-6 / "
+          f"atol 1e-12: {'; '.join(r['summary'] for r in k1_vs_plain)}; "
+          f"analytic cases at most "
+          f"{max(analytic.values()):.3f} of their bars; card vs CPU "
+          f"{card_vs_cpu:.2e} of the level's largest flux (bar 1e-4); one "
+          f"DISORT block of 32 columns x 54 layers x 2048 points "
+          f"{block_ms:.1f} ms, peak {block_peak / 2 ** 30:.2f} GiB above "
+          f"its inputs", flush=True)
+    return launches, k1_err
+
+
 def main():
     import torch
 
@@ -1114,23 +1474,25 @@ def main():
     launches8, o2_bins = phase_streamed_bins(info, dev, info["card"])
     torch.cuda.empty_cache()
     launches9 = phase_allsky(info, dev, info["card"])
+    torch.cuda.empty_cache()
+    launches10, err10 = phase_circ_app(info, dev, info["card"])
     check("jax" not in sys.modules, "JAX was imported")
     info["seconds"] = time.perf_counter() - t0
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(info, f, indent=1, default=str)
-    # K1 runs on all three paths (all 11 molecules at 0.1, the 4 SW
-    # molecules in each block of the streamed one, 18 per all-sky step);
-    # its launches are the three counts.
+    # K1 runs on all four paths (all 11 molecules at 0.1, the 4 SW
+    # molecules in each block of the streamed one, 18 per all-sky step, 14
+    # per CIRC run); its launches are the four counts.
     # No PyTorch call computes a Voigt sum over a line list: library_ms is
     # null for both.
     print(json.dumps({"kernels": [
         {"name": "voigt_line_sample", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES,
          "launches": k1_launches + launches8["voigt_line_sample"]
-         + launches9,
-         "max_abs_err": max(err3, err5), "ms": o2["ms"],
+         + launches9 + launches10,
+         "max_abs_err": max(err3, err5, err10), "ms": o2["ms"],
          "plain_ms": o2["plain_ms_mean"], "bound_ms": o2["bound_ms"],
          "bound_by": o2["bound_by"], "library_ms": None},
         {"name": "voigt_bins", "route": "cuda", "source": SOURCE_K2,

@@ -6,8 +6,8 @@ grtcode_tpu/clouds/hu_stamnes.py): per (radius bin, band) power-law fits
     asymmetry factor        = a3 r^b3 + c3
 
 with the radius clamped to the table's valid range and its bin chosen by
-an upper-bound search.  Tables come from arrays; the netCDF reader waits
-for the apps' IO.
+an upper-bound search.  Tables come from the reference's netCDF files
+(:meth:`HuStamnesLiquidOptics.from_netcdf`, through h5py) or from arrays.
 """
 from __future__ import annotations
 
@@ -55,6 +55,36 @@ class HuStamnesLiquidOptics:
             a3=a[2], b3=b[2], c3=c[2],
             min_radius=float(radii[0] if min_radius is None else min_radius),
             max_radius=float(radii[-1] if max_radius is None else max_radius))
+
+    @classmethod
+    def from_netcdf(cls, path: str, device):
+        """Load a Hu & Stamnes coefficient file (construct_liquid_optics,
+        liquid_cloud_optics.c:35-73): radius bin bounds from the dataset the
+        ``bounds`` attribute names, the valid range from ``valid_range``,
+        coefficients a1..c3 on (radius, band)."""
+        from ..utils.ncio import Dataset
+
+        with Dataset(path) as nc:
+            bounds_var = nc.attr("radius", "bounds")
+            valid = np.asarray(nc.attr("radius", "valid_range"), np.float64)
+            rb = nc.var(bounds_var)                       # (nbins, 2)
+            radii = np.concatenate([rb[:, 0], rb[-1:, 1]])
+            nbins = rb.shape[0]
+            band_lims = nc.var("band_bnds").reshape(-1, 2).T  # (2, nbands)
+            nbands = band_lims.shape[1]
+
+            def tab(name):
+                return torch.as_tensor(nc.var(name).reshape(nbins, nbands),
+                                       dtype=torch.float32, device=device)
+
+            return cls(radii=radii,
+                       band_lims=torch.as_tensor(band_lims,
+                                                 dtype=torch.float32,
+                                                 device=device),
+                       a1=tab("a1"), b1=tab("b1"), c1=tab("c1"),
+                       a2=tab("a2"), b2=tab("b2"), c2=tab("c2"),
+                       a3=tab("a3"), b3=tab("b3"), c3=tab("c3"),
+                       min_radius=float(valid[0]), max_radius=float(valid[1]))
 
     @property
     def num_bands(self) -> int:

@@ -4,8 +4,9 @@ grtcode_tpu/clouds/pade.py).
 One vectorised evaluation over (..., band): the first size regime that
 holds the radius, Horner polynomials in the offset from the regime's
 reference radius, coefficients in dense (nbnd, nsizereg, ncoef) tensors.
-Tables come from arrays (:meth:`PadeCloudOptics.from_arrays`,
-:func:`synthetic_pade_table`); the netCDF reader waits for the apps' IO.
+Tables come from RRTMGP-style netCDF files (:meth:`PadeCloudOptics.
+from_netcdf`, through h5py) or from arrays (:meth:`PadeCloudOptics.
+from_arrays`, :func:`synthetic_pade_table`).
 """
 from __future__ import annotations
 
@@ -42,6 +43,28 @@ class PadeCloudOptics:
         return cls(f(band_lims), f(sizereg_bounds), f(sizereg_ref),
                    f(ext_p), f(ext_q), f(ssa_p), f(ssa_q), f(asy_p),
                    f(asy_q))
+
+    @classmethod
+    def from_netcdf(cls, path: str, device):
+        """Read an RRTMGP-style Pade file (HDF5-backed netCDF4 via h5py;
+        the variable names of cloud_pade_optics.c:38-126)."""
+        import h5py
+        with h5py.File(path, "r") as f:
+            def v(name):
+                return np.asarray(f[name])
+
+            def coeffs(name):
+                # File layout (coef, sizereg, band) -> (band, sizereg, coef).
+                return np.transpose(v(name), (2, 1, 0))
+
+            return cls.from_arrays(
+                np.stack([v("Band_limits_lwr"), v("Band_limits_upr")]),
+                np.stack([v("Effective_Radius_limits_lwr"),
+                          v("Effective_Radius_limits_upr")]),
+                v("Effective_Radius_Ref"),
+                coeffs("Pade_ext_p"), coeffs("Pade_ext_q"),
+                coeffs("Pade_ssa_p"), coeffs("Pade_ssa_q"),
+                coeffs("Pade_asy_p"), coeffs("Pade_asy_q"), device=device)
 
     def evaluate(self, content, radius):
         """(extinction, ssa, g), each (..., nbnd), of condensate amounts

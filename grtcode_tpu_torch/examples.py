@@ -59,6 +59,31 @@ MOLAR_MASS_KG = 28.9647e-3  # dry air [kg mol-1]
 GRAVITY = 9.81              # [m s-2]
 
 
+def line_lists(lw_grid: SpectralGrid, sw_grid: SpectralGrid,
+               shrink: int = 1) -> dict:
+    """The raw line parameters of :func:`rfmip_like`'s catalogs, as the
+    benchmark draws them: ``{"lw": {mol: params}, "sw": {mol: params}}``,
+    each ``params`` a dict of float64 arrays ``vnn`` (ascending, uniform
+    over the band's grid), ``s0`` (HITRAN-convention intensity), ``yair``,
+    ``yself``, ``en``, ``n`` and ``d``; LW molecule k from seed k, SW
+    molecule k from seed 100 + k, ``LW_LINES`` / ``SW_LINES`` lines each
+    divided by ``shrink`` (at least 64)."""
+    def draw(grid, L, seed):
+        rng = np.random.default_rng(seed)
+        return dict(
+            vnn=np.sort(rng.uniform(grid.w0, grid.last, L)),
+            s0=10.0 ** rng.uniform(-23.5, -19.5, L),
+            yair=rng.uniform(0.02, 0.11, L), yself=rng.uniform(0.05, 0.4, L),
+            en=rng.uniform(0.0, 2800.0, L), n=rng.uniform(0.35, 0.85, L),
+            d=rng.uniform(-0.01, 0.01, L))
+
+    return {
+        "lw": {mol: draw(lw_grid, max(64, L // shrink), seed)
+               for seed, (mol, L) in enumerate(LW_LINES.items())},
+        "sw": {mol: draw(sw_grid, max(64, L // shrink), 100 + seed)
+               for seed, (mol, L) in enumerate(SW_LINES.items())}}
+
+
 def rfmip_like(smoke: bool = False, batch_size: int | None = None, *,
                device, lw_method: str = "line_sample", lw_res: float = 0.1):
     """(lw_gas, sw_gas, solar, batch, B, nlayers) on ``device``, as
@@ -70,15 +95,6 @@ def rfmip_like(smoke: bool = False, batch_size: int | None = None, *,
     sw_grid = SpectralGrid(1.0, 50000.0, 1.0 * (8 if smoke else 1))
     B = batch_size if batch_size else (4 if smoke else 32)
     nlayers = 54
-
-    def catalog(mol_id, grid, L, seed):
-        rng = np.random.default_rng(seed)
-        vnn = np.sort(rng.uniform(grid.w0, grid.last, L))
-        return synthetic_catalog(
-            mol_id, vnn, 10.0 ** rng.uniform(-23.5, -19.5, L),
-            yair=rng.uniform(0.02, 0.11, L), yself=rng.uniform(0.05, 0.4, L),
-            en=rng.uniform(0.0, 2800.0, L), n=rng.uniform(0.35, 0.85, L),
-            d=rng.uniform(-0.01, 0.01, L))
 
     def f32(a):
         return torch.as_tensor(a, dtype=torch.float32, device=device)
@@ -109,19 +125,19 @@ def rfmip_like(smoke: bool = False, batch_size: int | None = None, *,
                 id=s1, name=f"cia{k}", cross_section=f32(
                     np.float64(sig) * constants.CIA_COLUMN_FACTOR))))
 
+    lines = line_lists(lw_grid, sw_grid, shrink)
     lw_h2o, lw_o3 = continua(lw_grid)
     lw_gas = GasOptics(lw_grid, line_chunk=1024, h2o_ctm=lw_h2o,
                        o3_ctm=lw_o3, method=lw_method, device=device)
-    for seed, (mol, L) in enumerate(LW_LINES.items()):
-        lw_gas.add_catalog(catalog(mol, lw_grid, max(64, L // shrink), seed))
+    for mol, params in lines["lw"].items():
+        lw_gas.add_catalog(synthetic_catalog(mol, **params))
     xsec_tables(lw_gas, lw_grid)
 
     sw_h2o, sw_o3 = continua(sw_grid)
     sw_gas = GasOptics(sw_grid, line_chunk=1024, h2o_ctm=sw_h2o,
                        o3_ctm=sw_o3, device=device)
-    for seed, (mol, L) in enumerate(SW_LINES.items()):
-        sw_gas.add_catalog(
-            catalog(mol, sw_grid, max(64, L // shrink), 100 + seed))
+    for mol, params in lines["sw"].items():
+        sw_gas.add_catalog(synthetic_catalog(mol, **params))
     xsec_tables(sw_gas, sw_grid)
 
     solar = SolarFlux.from_samples(

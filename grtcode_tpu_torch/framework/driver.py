@@ -28,6 +28,7 @@ import torch
 from .. import constants
 from ..gas_optics.gas_optics import GasOptics
 from ..optics import Optics, combine
+from ..solvers.disort import disort_shortwave
 from ..solvers.longwave import longwave_fluxes
 from ..solvers.rayleigh import rayleigh_tau
 from ..solvers.shortwave import shortwave_fluxes
@@ -39,8 +40,10 @@ from ..utils.interp import (block_trapezoid_weights, interpolate_to_grid_np,
 from .atmosphere import Atmosphere
 
 DIFFUSE_MU = 0.5  # cosine of the diffuse angle
-# Profiler range around each call of the cloud-optics callback.
+# Profiler ranges around each call of the cloud-optics callback and of
+# the discrete-ordinates solver.
 CLOUD_OPTICS_RANGE = "grtcode::cloud_optics"
+DISORT_RANGE = "grtcode::disort"
 
 
 @dataclasses.dataclass
@@ -75,6 +78,11 @@ class FluxResults:
         data = self.tiers[self._TIER_SUFFIX[rest]][f"r{band}{direction}"]
         return (data[:, level] if level is not None else data).cpu().numpy()
 
+    def host(self) -> dict:
+        """The tiers as numpy arrays on the host (for the file writers)."""
+        return {t: {k: v.cpu().numpy() for k, v in fx.items()}
+                for t, fx in self.tiers.items()}
+
 
 def _take(tree, idx):
     """Rows ``idx`` (a device index tensor) of every tensor in a nested
@@ -95,6 +103,10 @@ class RadiationDriver:
     w_lw, w_sw) -> (liq_lw, ice_lw, liq_sw, ice_sw)`` Optics with (B,
     nlayers, nw) fields (``CloudOpticsLib.driver_callback()`` makes one);
     ``key`` is a (2,) :mod:`..utils.prng` key, one per subcolumn.
+    ``sw_solver="disort"`` runs the shortwave of every tier through the
+    ``disort_streams``-stream discrete-ordinates solver
+    (:func:`..solvers.disort.disort_shortwave`) instead of the two-stream
+    one.
     """
 
     lw_gas: GasOptics
@@ -146,16 +158,15 @@ class RadiationDriver:
         the whole batch.  ``spectral_chunks`` streams each band through
         that many blocks: ``ceil(n / S)`` rounded up to the band's
         ``block_quantum``, each reduced with its exact trapezoid weights
-        (integrated output only).  ``mesh`` and ``sw_solver="disort"``
-        raise :class:`NotImplementedError` naming their ROADMAP item.
+        (integrated output only).  ``mesh`` raises
+        :class:`NotImplementedError` naming its ROADMAP item.
         """
         if mesh is not None:
             raise NotImplementedError(
                 "mesh: multi-GPU runs are ROADMAP queue 1, O6")
-        if self.sw_solver != "two_stream":
-            raise NotImplementedError(
-                f"sw_solver={self.sw_solver!r}: DISORT is ROADMAP queue 1, "
-                "O4")
+        if self.sw_solver not in ("two_stream", "disort"):
+            raise ValueError(f"sw_solver={self.sw_solver!r}: expected "
+                             "'two_stream' or 'disort'")
         S = 1 if spectral_chunks is None else int(spectral_chunks)
         if S < 1:
             raise ValueError(
@@ -366,11 +377,20 @@ class RadiationDriver:
             out = {"rlu": reduce(flu, lwg, start_lw, size_lw),
                    "rld": reduce(fld, lwg, start_lw, size_lw)}
             del flu, fld
-            if with_sw:
+            if with_sw and self.sw_solver == "disort":
+                # The reference's --enable-disort swap: the discrete-
+                # ordinates solver in place of the two-stream one, on the
+                # same lit columns.
+                with torch.profiler.record_function(DISORT_RANGE):
+                    fsu, fsd = disort_shortwave(
+                        opt_sw.tau, opt_sw.omega, opt_sw.g, mu, albedo,
+                        col["tsi"], sol_block, nstr=self.disort_streams)
+            elif with_sw:
                 fsu, fsd = shortwave_fluxes(
                     opt_sw.tau, opt_sw.omega, opt_sw.g, mu,
                     torch.full_like(mu, DIFFUSE_MU), albedo, albedo,
                     col["tsi"], sol_block)
+            if with_sw:
                 out["rsu"] = reduce(fsu, swg, start_sw, size_sw)
                 out["rsd"] = reduce(fsd, swg, start_sw, size_sw)
             else:

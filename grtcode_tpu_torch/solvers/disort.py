@@ -1,0 +1,274 @@
+"""Multi-stream discrete-ordinates shortwave solver (port of
+grtcode_tpu/solvers/disort.py).
+
+Azimuthally averaged, flux-only, plane-parallel solve with a Lambertian
+surface and a Henyey-Greenstein phase function, driven per wavenumber, as
+the reference's optional cdisort adapter computes it.  Each homogeneous
+layer's diffuse reflection / transmission operators (h x h matrices, h =
+nstr/2 Gauss streams per hemisphere) are built by matrix doubling from an
+infinitesimal single-scattering initializer, and layers combine with the
+matrix adding method.  Everything is batched (column, layer, wavenumber)
+8 x 8 products and solves; there is no data-dependent control flow and no
+eigendecomposition.
+
+The 8 x 8 products need full float32 matmuls: the solver refuses to run
+while ``torch.get_float32_matmul_precision()`` is not "highest" (PyTorch's
+default), so TF32 or bfloat16 products can never enter it silently.
+
+Delta-M scaling truncates the HG phase function at the stream count, as
+cdisort does by default.  Level 0 is the top of the atmosphere; the
+incident direct flux at the top on the horizontal is
+``total_solar_irradiance * solar_flux(w) * mu0``; fluxes are per
+wavenumber [W cm m-2].
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_DOUBLINGS = 37     # max doubling steps (covers tau up to _TAU_CLAMP)
+_DTAU_TARGET = 1e-5  # initializer sub-layer thickness
+_TAU_CLAMP = 1e6    # beyond this a layer is numerically opaque in f32
+# f32(ln 2): the JAX package's log2 is log(x) / log(2) and its exp2 is
+# exp(ln2 * x), neither exact at integers; the doubling counts and
+# sub-layer thicknesses below use the same expressions.
+_LN2 = float(np.float32(np.log(2.0)))
+
+
+def gauss_streams(nstr: int):
+    """Full-range Gauss-Legendre quadrature (positive hemisphere): the
+    nstr-point rule on (-1, 1) normalizes the truncated phase function
+    exactly, the discrete-ordinates energy conservation condition."""
+    if nstr < 4 or nstr % 2:
+        raise ValueError("nstr must be an even integer >= 4")
+    x, w = np.polynomial.legendre.leggauss(nstr)
+    pos = x > 0
+    order = np.argsort(x[pos])
+    return x[pos][order].astype(np.float64), w[pos][order].astype(np.float64)
+
+
+def _legendre_table(mu: np.ndarray, lmax: int) -> np.ndarray:
+    """P_l(mu) for l = 0..lmax, shape (lmax+1, len(mu)); host-side."""
+    out = np.empty((lmax + 1, mu.shape[0]))
+    out[0] = 1.0
+    if lmax >= 1:
+        out[1] = mu
+    for l in range(2, lmax + 1):
+        out[l] = ((2 * l - 1) * mu * out[l - 1]
+                  - (l - 1) * out[l - 2]) / l
+    return out
+
+
+def _legendre_mu0(mu0, lmax: int):
+    """P_l(mu0) for a tensor of beam cosines, stacked (lmax+1, ...)."""
+    ps = [torch.ones_like(mu0)]
+    if lmax >= 1:
+        ps.append(mu0)
+    for l in range(2, lmax + 1):
+        ps.append(((2 * l - 1) * mu0 * ps[-1] - (l - 1) * ps[-2]) / l)
+    return torch.stack(ps)
+
+
+def _mv(a, v):
+    """Batched matrix-vector product (..., h, h) x (..., h) -> (..., h)."""
+    return (a @ v[..., None])[..., 0]
+
+
+def _check_precision():
+    if torch.get_float32_matmul_precision() != "highest":
+        raise ValueError(
+            "disort_shortwave needs full float32 matmuls; "
+            "torch.get_float32_matmul_precision() is "
+            f"{torch.get_float32_matmul_precision()!r}, not 'highest'")
+
+
+def disort_shortwave(tau, omega, g, mu_dir, albedo_dir,
+                     total_solar_irradiance, solar_flux, *, nstr: int = 16,
+                     deltam: bool = True, wchunk: int = 2048):
+    """Discrete-ordinates SW fluxes.
+
+    Args:
+      tau, omega, g: (nlayers, nw) or (B, nlayers, nw) layer optical depth
+        / single-scatter albedo / asymmetry factor.
+      mu_dir: () or (B,) beam cosine (> 0).
+      albedo_dir: (nw,) or (B, nw) Lambertian surface albedo.
+      total_solar_irradiance: () or (B,) [W m-2].
+      solar_flux: (nw,) normalized solar spectrum (integrates to 1).
+      nstr: number of streams (16 matches the reference adapter).
+      deltam: apply delta-M truncation scaling.
+      wchunk: wavenumbers per block (bounds the (B, nlevels, wchunk, h, h)
+        temporaries).
+
+    Returns (flux_up, flux_down), each (nlevels, nw) or (B, nlevels, nw)
+    [W cm m-2], on tau's device.
+    """
+    _check_precision()
+    f32 = torch.float32
+    tau = torch.as_tensor(tau, dtype=f32)
+    dev = tau.device
+
+    def t(a):
+        return torch.as_tensor(a, dtype=f32, device=dev)
+
+    single = tau.ndim == 2
+    omega, g = t(omega), t(g)
+    mu0 = t(mu_dir)
+    alb = t(albedo_dir)
+    tsi = t(total_solar_irradiance)
+    if single:
+        tau, omega, g = tau[None], omega[None], g[None]
+        mu0, alb, tsi = mu0.reshape(1), alb[None], tsi.reshape(1)
+    B, nlayers, nw = tau.shape
+
+    h = nstr // 2
+    mu_np, w_np = gauss_streams(nstr)
+    lmax = nstr
+    pl = _legendre_table(mu_np, lmax)                  # (L+1, h)
+    mu = t(mu_np)
+    wq = t(w_np)
+    # (L+1, h, h) same- / opposite-hemisphere Legendre products.
+    sign = (-1.0) ** np.arange(lmax + 1)
+    coef = 2 * np.arange(lmax + 1) + 1
+    ppp_l = t(coef[:, None, None] * pl[:, :, None] * pl[:, None, :])
+    ppm_l = t((coef * sign)[:, None, None] * pl[:, :, None] * pl[:, None, :])
+    pl_dev = t(pl)                                     # (L+1, h)
+    ls = torch.arange(lmax + 1, dtype=f32, device=dev)
+    # (B, L+1, h): P_l(mu_i) (2l+1) P_l(mu0), and with (-1)^l.
+    base = (2.0 * ls + 1.0) * _legendre_mu0(mu0, lmax).T
+    beam_m = pl_dev * base[..., None]
+    beam_p = t(sign)[:, None] * beam_m
+    eye = torch.eye(h, dtype=f32, device=dev)
+    fbeam = tsi[:, None] * t(solar_flux)               # (B, nw)
+
+    def solve_block(tau, omega, gg, alb, mu0):
+        """(fup, fdn) of one wavenumber block, each (B, nlev, W) before
+        the beam scaling."""
+        tau = torch.clamp(tau, 0.0, _TAU_CLAMP)
+        omega = torch.clamp(omega, 0.0, 1.0)
+
+        # HG moments chi_l = g^l, optionally delta-M scaled (f = g^nstr).
+        chi = gg[..., None] ** ls                      # (B, nlay, W, L+1)
+        if deltam:
+            f = gg ** nstr
+            chi = (chi - f[..., None]) / (1.0 - f[..., None])
+            tau_s = (1.0 - omega * f) * tau
+            omega = (1.0 - f) * omega / (1.0 - omega * f)
+            tau = tau_s
+
+        # Phase matrices and beam phase vectors.
+        p_pp = torch.einsum("bnwl,lij->bnwij", chi, ppp_l)
+        p_pm = torch.einsum("bnwl,lij->bnwij", chi, ppm_l)
+        pb_p = torch.einsum("bnwl,bli->bnwi", chi, beam_p)
+        pb_m = torch.einsum("bnwl,bli->bnwi", chi, beam_m)
+
+        # Per-layer doubling count k: dtau = tau / 2^k stays near
+        # _DTAU_TARGET, thin layers use k = 0.
+        q = torch.clamp(tau, min=1e-30) / torch.tensor(_DTAU_TARGET,
+                                                         dtype=f32)
+        k_layer = torch.clamp(
+            torch.ceil(torch.log(q) / torch.log(torch.tensor(2.0))),
+            0.0, float(_DOUBLINGS))                    # (B, nlay, W)
+        dtau = tau / torch.exp(_LN2 * k_layer)
+        x = (dtau[..., None] * omega[..., None] * 0.5) / mu  # (.., W, h)
+        # T is tracked split as E + Tt, E = diag(exp(-tau_partial/mu))
+        # recomputed analytically at every doubling level.
+        Tt = x[..., None] * p_pp * wq                  # scattered part
+        R = x[..., None] * p_pm * wq
+        sr = x * pb_p
+        st = x * pb_m
+        del chi, p_pp, p_pm, pb_p, pb_m
+        mu0_b = mu0[:, None, None]
+
+        def att(i):
+            """Analytic E (diffuse diag) and d (direct) at doubling level
+            i, i.e. sub-layer thickness dtau * 2^i."""
+            t_i = dtau * torch.exp(_LN2 * torch.clamp(k_layer, max=float(i)))
+            return torch.exp(-t_i[..., None] / mu), torch.exp(-t_i / mu0_b)
+
+        for i in range(_DOUBLINGS):
+            E, d = att(i)
+            m = eye - R @ R
+            # With T_full = diag(E) + Tt and M = m^-1, the doubled operators
+            # are T' = T_full M T_full and R' = R + T_full R M T_full, the
+            # diag(E) products kept as row / column scalings:
+            #   Sd := M T_full - diag(E) = Tt + M R (R T_full).
+            RT = R * E[..., None, :] + R @ Tt          # R @ T_full
+            rhs = st + _mv(R, sr * d[..., None])
+            # One solve for both right-hand sides: [R RT | rhs].
+            sol = torch.linalg.solve_ex(
+                m, torch.cat([R @ RT, rhs[..., None]], -1))[0]
+            Sd = Tt + sol[..., :h]
+            D = sol[..., h]
+            RS = R * E[..., None, :] + R @ Sd          # R @ M @ T_full
+            R_n = R + E[..., :, None] * RS + Tt @ RS
+            Tt_n = E[..., :, None] * Sd + Tt * E[..., None, :] + Tt @ Sd
+            U = _mv(R, D) + sr * d[..., None]
+            sr_n = sr + E * U + _mv(Tt, U)
+            st_n = st * d[..., None] + E * D + _mv(Tt, D)
+            do = float(i) < k_layer
+            R = torch.where(do[..., None, None], R_n, R)
+            Tt = torch.where(do[..., None, None], Tt_n, Tt)
+            sr = torch.where(do[..., None], sr_n, sr)
+            st = torch.where(do[..., None], st_n, st)
+            del E, m, RT, rhs, sol, Sd, D, RS, R_n, Tt_n, U, sr_n, st_n, do
+        E_fin, d = att(_DOUBLINGS)
+        T = E_fin[..., :, None] * eye + Tt
+        del Tt, E_fin
+
+        # Surface "layer": Lambertian, normalized by the quadrature's
+        # sum(w mu) so that F_up(sfc) == albedo * F_down(sfc) exactly.
+        W = tau.shape[-1]
+        inv_swmu = 1.0 / torch.sum(wq * mu)
+        Rb = ((inv_swmu * alb[..., None, None]) * (mu * wq)).expand(
+            B, W, h, h)
+        srb = (inv_swmu * alb * mu0[:, None])[..., None].expand(B, W, h)
+
+        # Reverse pass: R_below[k], sr_below[k] is the response of the
+        # stack below level k (k = nlayers: the surface).
+        R_below = [None] * (nlayers + 1)
+        sr_below = [None] * (nlayers + 1)
+        for k in reversed(range(nlayers)):
+            R_below[k + 1], sr_below[k + 1] = Rb, srb
+            Ra, Ta, sra, sta, da = R[:, k], T[:, k], sr[:, k], st[:, k], \
+                d[:, k]
+            m = eye - Ra @ Rb
+            rhs = sta + _mv(Ra, srb * da[..., None])
+            sol = torch.linalg.solve_ex(m, torch.cat([Ta, rhs[..., None]],
+                                                     -1))[0]
+            U = _mv(Rb, sol[..., h]) + srb * da[..., None]
+            srb = sra + _mv(Ta, U)
+            Rb = Ra + Ta @ (Rb @ sol[..., :h])
+        R_below[0], sr_below[0] = Rb, srb
+
+        # Forward pass: downward diffuse D_k and direct dir_k per level.
+        Dk = torch.zeros((B, W, h), dtype=f32, device=dev)
+        dirk = torch.ones((B, W), dtype=f32, device=dev)
+        D_all, dir_all = [Dk], [dirk]
+        for k in range(nlayers):
+            Ra, Ta, sta, da = R[:, k], T[:, k], st[:, k], d[:, k]
+            dir_next = dirk * da
+            rhs = _mv(Ta, Dk) + sta * dirk[..., None] + \
+                _mv(Ra, sr_below[k + 1] * dir_next[..., None])
+            m = eye - Ra @ R_below[k + 1]
+            Dk = torch.linalg.solve_ex(m, rhs[..., None])[0][..., 0]
+            dirk = dir_next
+            D_all.append(Dk)
+            dir_all.append(dirk)
+        D_all = torch.stack(D_all, 1)                  # (B, nlev, W, h)
+        dir_all = torch.stack(dir_all, 1)              # (B, nlev, W)
+        U_all = _mv(torch.stack(R_below, 1), D_all) + \
+            torch.stack(sr_below, 1) * dir_all[..., None]
+        wu = wq * mu
+        fup = (U_all * wu).sum(-1)
+        fdn = (D_all * wu).sum(-1) + mu0[:, None, None] * dir_all
+        return fup, fdn
+
+    ups, dns = [], []
+    for s in range(0, nw, wchunk):
+        e = min(s + wchunk, nw)
+        fup, fdn = solve_block(tau[..., s:e], omega[..., s:e], g[..., s:e],
+                               alb[:, s:e], mu0)
+        ups.append(fup * fbeam[:, None, s:e])
+        dns.append(fdn * fbeam[:, None, s:e])
+    fup, fdn = torch.cat(ups, -1), torch.cat(dns, -1)
+    return (fup[0], fdn[0]) if single else (fup, fdn)

@@ -65,9 +65,10 @@ def _jax_gas(grid, method, mols):
     return g
 
 
-def _jax_model(lw_method="line_sample"):
-    """(JAX driver with the JAX cloud optics, JAX Atmosphere)."""
-    lw_grid, sw_grid = JGrid(100.0, 400.0, 0.1), JGrid(1000.0, 9000.0, 4.0)
+def _jax_model(lw_method="line_sample", sw_band=(1000.0, 9000.0, 4.0)):
+    """(JAX driver with the JAX cloud optics, JAX Atmosphere); the SW grid
+    is ``sw_band`` (first, last, step) [cm-1]."""
+    lw_grid, sw_grid = JGrid(100.0, 400.0, 0.1), JGrid(*sw_band)
     jlw = _jax_gas(lw_grid, lw_method, ((1, 21), (2, 22)))
     jsw = _jax_gas(sw_grid, "line_sample", ((1, 23),))
     jsol = JSolarFlux.from_samples(

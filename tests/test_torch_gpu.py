@@ -1,8 +1,10 @@
 """The port on an NVIDIA GPU: the CUDA line_sample and bin kernels against
 their plain PyTorch versions, the clear-sky aerosol-free step on CUDA
 tensors (line_sample, and the spectrally streamed bin-method step) and the
-all-sky step against the same steps on CPU tensors, and the cloud draws on
-the card against the CPU's.
+all-sky step against the same steps on CPU tensors, the cloud draws on
+the card against the CPU's, the discrete-ordinates solver and the
+all-sky step with it against the CPU, and the CIRC app on the card
+against the same app on the CPU.
 
 Every test is marked ``gpu`` and skips without a GPU.  The file imports no
 JAX, so it also runs where JAX is not installed; ``tests/conftest.py``
@@ -400,3 +402,110 @@ def test_bin_kernel_in_every_region_and_y_limit(cuda, mode, start_bin,
                       nbins=bins.n - start_bin if nbins is None else nbins)
     assert all(cen["fine_samples"][c] > 0 for c in (
         "region0", "region1", "region2", "region3", "region4a", "lorentz"))
+
+
+# ---------------------------------------------------------------------------
+# DISORT and the CIRC app
+# ---------------------------------------------------------------------------
+
+# Card against CPU for the discrete-ordinates solver: per level, of the
+# level's largest flux (the bar the port holds against JAX on the CPU,
+# tests/test_torch_disort.py, is 1e-5).
+DISORT_TOL = 1e-5
+
+
+def _disort_inputs(B, nlayers, nw, seed=3):
+    rng = np.random.default_rng(seed)
+    tau = 10.0 ** rng.uniform(-6, 2, (B, nlayers, nw))
+    tau[:, 0, :4] = [0.0, 1e-12, 1e12, 1e-5 * 2 ** 7]
+    return [torch.as_tensor(a, dtype=torch.float32) for a in (
+        tau, rng.uniform(0, 1, (B, nlayers, nw)),
+        rng.uniform(-0.2, 0.9, (B, nlayers, nw)),
+        rng.uniform(0.05, 1.0, B), rng.uniform(0, 0.5, (B, nw)),
+        rng.uniform(1000, 1400, B), rng.uniform(0.5, 1.5, nw))]
+
+
+@pytest.mark.parametrize("nstr", [4, 16])
+def test_disort_on_the_card_matches_the_cpu(cuda, nstr):
+    from grtcode_tpu_torch.solvers.disort import disort_shortwave
+    args = _disort_inputs(3, 12, 300)
+    kw = dict(nstr=nstr, wchunk=128)                 # blocks 128, 128, 44
+    got = disort_shortwave(*(a.to(cuda) for a in args), **kw)
+    want = disort_shortwave(*args, **kw)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and g.shape == w.shape == (3, 13, 300)
+        g, w = g.cpu().numpy(), w.numpy()
+        assert np.isfinite(g).all()
+        scale = np.abs(w).max(axis=-1, keepdims=True)
+        assert float((np.abs(g - w) / scale).max()) < DISORT_TOL
+
+
+def test_allsky_disort_step_on_the_card_matches_the_cpu(cuda):
+    """examples.allsky_like at smoke size with the 4-stream DISORT in
+    place of the two-stream solver, liquid clouds only: 18 K1 launches, no
+    plain one, every tier within FLUX_TOL of the CPU run.  (Its synthetic
+    ice table, evaluated at cirrus radii beyond its size regimes, gives
+    single-scattering albedos up to 1.47 and asymmetry factors up to 1.76;
+    on such optics DISORT is NaN in both packages, ROADMAP queue 3.)"""
+    import dataclasses
+
+    def fluxes(device):
+        driver, atm = examples.allsky_like(smoke=True, device=device)
+        atm = dataclasses.replace(
+            atm, ice_water_content=np.zeros_like(atm.ice_water_content))
+        res = dataclasses.replace(driver, sw_solver="disort",
+                                  disort_streams=4).run(atm)
+        return {t: {k: v.cpu().numpy() for k, v in fx.items()}
+                for t, fx in res.tiers.items()}
+
+    k1, plain = (vk.accumulate_voigt.launches,
+                 vk.voigt_line_sample_reference.launches)
+    got = fluxes(cuda)
+    torch.cuda.synchronize()
+    assert vk.accumulate_voigt.launches - k1 == 18
+    assert vk.voigt_line_sample_reference.launches == plain
+    want = fluxes("cpu")
+    for tier in ("csaf", "cs", "af"):
+        for var in ("rlu", "rld", "rsu", "rsd"):
+            g, w = got[tier][var], want[tier][var]
+            assert g.shape == w.shape == (4, 55) and np.isfinite(g).all()
+            scale = np.maximum(np.abs(w), 0.01 * np.abs(w).max())
+            assert float((np.abs(g - w) / scale).max()) < FLUX_TOL, \
+                (tier, var)
+
+
+def test_circ_app_on_the_card_matches_the_cpu(cuda, tmp_path, capsys):
+    """``apps.circ.main`` on the driver golden's input files at the CLI
+    tests' coarse grids (LW at 4, SW at 10 cm-1) on ``cuda:0`` (the app's
+    default device) and on the CPU: the app registers its 7 molecules in
+    each band (CO and O2 have no lines in this file and launch on padding
+    alone), so 14 K1 launches and no plain one; fluxes within FLUX_TOL."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), os.pardir))
+    from tools.goldens import driver_inputs
+    from grtcode_tpu_torch.apps import circ
+
+    d = str(tmp_path)
+    driver_inputs.write_inputs(d)
+    argv = [os.path.join(d, "synthetic.par"), os.path.join(d, "solar.csv"),
+            "-h2o-ctm", os.path.join(d, "h2o_ctm"), "-o3-ctm",
+            os.path.join(d, "o3_ctm.csv"), "-CFC-11",
+            os.path.join(d, "cfc11.csv"), "-N2-N2",
+            os.path.join(d, "cia_n2n2.csv"), "-o", "", "-r-lw", "4.0",
+            "-r-sw", "10.0"]
+    k1, plain = (vk.accumulate_voigt.launches,
+                 vk.voigt_line_sample_reference.launches)
+    got = circ.main(argv)
+    torch.cuda.synchronize()
+    assert got.tiers["csaf"]["rlu"].device.type == "cuda"
+    assert vk.accumulate_voigt.launches - k1 == 14
+    assert vk.voigt_line_sample_reference.launches == plain
+    want = circ.main(argv, device="cpu")
+    assert "RSDTCSAF" in capsys.readouterr().out
+    for var in ("rlu", "rld", "rsu", "rsd"):
+        g = got.tiers["csaf"][var].cpu().numpy()
+        w = want.tiers["csaf"][var].numpy()
+        assert g.shape == w.shape == (1, 55) and np.isfinite(g).all()
+        scale = np.maximum(np.abs(w), 0.01 * np.abs(w).max())
+        assert float((np.abs(g - w) / scale).max()) < FLUX_TOL, var
