@@ -4,20 +4,23 @@
     python3 chip_smoke.py
 
 builds the two CUDA kernels from csrc/ with nvcc (K1, line_sample Voigt;
-K2, the bin-method Voigt) and drives the port's four main paths,
+K2, the bin-method Voigt) and drives the port's main paths,
 ``RadiationDriver(lw_gas, sw_gas, solar).run(atm)`` on a clean, clear
 atmosphere with line_sample at LW 0.1 cm-1 and with the bin method at the
 production LW 0.01 cm-1 streamed through 10 spectral blocks, the
 all-sky step (aerosols, stochastic clouds, half the columns at night) at
-LW 0.1, and the CIRC app with both SW solvers, in ten phases (one line
-each):
+LW 0.1, the CIRC app with both SW solvers, the line_sample step over
+(columns x spectral) meshes of ranks with the all-sky cell's per-node
+segments, and the metrics, debug and C ABI modules, in twelve phases (one
+line each):
 
   1. the card: name and power limit as nvidia-smi gives them (on a line
      of their own, then the phase line with the torch / CUDA versions and
      the clocks, temperature and power draw; phase 5 reads them again
      under load);
-  2. both kernels built at once, timed, with ptxas's register / spill
-     report;
+  2. both kernels (one nvcc each), the native .par scanner and the C ABI
+     shim (one g++ each) built at once, timed, with ptxas's register /
+     spill report;
   3. K1 against its plain PyTorch version on the card: one
      synthetic molecule on the 1-3250 cm-1 grid at 0.1 cm-1, 4 x 54 rows,
      full block and a block with start > 0 at rtol 2e-6, atol 1e-12, two
@@ -64,7 +67,9 @@ each):
  10. the CIRC app (apps.circ.main on case 1) at its default grids (LW
      1-3,250 at 0.1, SW 1-50,000 at 1.0) on a HITRAN-scale .par written
      from examples.line_lists (430,000 records): (b) two-stream, timed
-     with the .par parse apart, 14 K1 launches and no plain launch,
+     with the .par parse apart (all 14 parses by the native scanner, none
+     in Python; then one parse of the file's H2O lines by each path, in
+     turns), 14 K1 launches and no plain launch,
      RSDTCSAF within 1.0 W m-2 of TSI mu0, fluxes finite and non-negative;
      (c) the same driver with the 16-stream DISORT: one untimed and three
      timed steps, RSDTCSAF equal to the two-stream's, RSU / RSD within the
@@ -73,7 +78,22 @@ each):
      at rtol 2e-6 / atol 1e-12; (d) DISORT's analytic cases on the card at
      tests/test_disort.py's bars, card against CPU (bar 1e-4 of the
      level's largest flux), and one block of 32 columns timed with its
-     peak memory.
+     peak memory;
+ 11. the mesh and the segments: (a) a world of one NCCL rank on cuda:0,
+     the line_sample cell of phase 5 on make_mesh(1, 1), bit-identical to
+     run(); (b) two spawned ranks, both on cuda:0 in a gloo group (NCCL
+     refuses two ranks on one GPU), the same cell on meshes (1 x 2),
+     bit-identical to run(spectral_chunks=2), and (2 x 1), within rtol
+     1e-6 of run(); then run_driver_segment writes two segments of the
+     all-sky cell (each rank a node), combined byte-identical to the same
+     segments in one process and within rtol 1e-6 of the whole batch;
+     each run's wall time, peak memory and K1 launches per rank;
+ 12. the aux modules: Metrics over three line_sample steps (points/s as
+     phase 5 counts them), a profiler_trace under build/ with its K1
+     kernels, debug_mode on a clean step (no trap) and on one NaN
+     temperature (a trap), and the C ABI through ctypes on cuda:0
+     (grt_create_device(0)): H2O optical depth from a .par, LW fluxes and
+     Rayleigh + gas SW fluxes, bit-identical to the port's direct calls.
 
 Prints a kernels JSON line and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero without that line; there is no CPU
@@ -97,6 +117,11 @@ TOL_GOLDEN = 1e-4                          # tests/test_driver_golden.py:40
 TOL_BINS_GOLDEN = dict(rtol=2e-3, atol=1e-7)  # tests/test_bins.py:59
 TOL_GOLDEN_TIERS = 1e-3                    # tests/test_driver_golden.py:203
 TOL_CHUNK = dict(rtol=2e-6, atol=1e-6)     # tests/test_framework.py:190
+# A column shard against the whole batch: the reductions over the
+# wavenumber axis may split their sums differently at another batch size.
+TOL_MESH_COLUMNS = 1e-6
+MESH_TIMEOUT_S = 300.0   # phase 11's process groups, start to end
+BUILD_DIR = os.path.join("build", "chip_smoke")
 REPLACES = "grtcode_tpu/gas_optics/pallas_kernels.py:247"
 SOURCE = "grtcode_tpu_torch/csrc/voigt_line_sample.cu"
 REPLACES_K2 = "grtcode_tpu/gas_optics/bins_pallas.py:215"
@@ -252,21 +277,29 @@ def phase_card(info):
 
 
 def phase_build(info):
-    """Both kernels, one nvcc each, started together."""
+    """Both kernels (one nvcc each), the .par scanner and the C ABI shim
+    (one g++ each), started together."""
     from concurrent.futures import ThreadPoolExecutor
+    from grtcode_tpu_torch import bindings, native
     from grtcode_tpu_torch.gas_optics import bins_kernel as bk
     from grtcode_tpu_torch.gas_optics import voigt_kernel as vk
 
-    def timed(mod):
+    builds = {"voigt_line_sample": vk.build, "voigt_bins": bk.build,
+              "hitran_parser": native.available,
+              "grtcode_tpu_c": bindings.build}
+
+    def timed(build):
         t0 = time.perf_counter()
-        mod.build()
-        return time.perf_counter() - t0
+        ok = build()
+        return time.perf_counter() - t0, ok
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        secs = dict(zip(("voigt_line_sample", "voigt_bins"),
-                        pool.map(timed, (vk, bk))))
+    with ThreadPoolExecutor(len(builds)) as pool:
+        done = dict(zip(builds, pool.map(timed, builds.values())))
     total = time.perf_counter() - t0
+    check(done["hitran_parser"][1] is True,
+          "the native .par scanner did not build (see the warning above)")
+    secs = {name: s for name, (s, _) in done.items()}
     info["build_s"] = dict(secs, total=total)
     reports = []
     for name, mod in (("voigt_line_sample", vk), ("voigt_bins", bk)):
@@ -274,7 +307,9 @@ def phase_build(info):
         ptxas = " | ".join(ln.strip() for ln in mod.build_log.splitlines()
                            if "registers" in ln or "spill" in ln)
         reports.append(f"{name} {secs[name]:.2f} s ({ptxas or 'cached'})")
-    print(f"phase 2 build: {total:.2f} s for both: " + "; ".join(reports),
+    reports += [f"{name} {secs[name]:.2f} s (g++)"
+                for name in ("hitran_parser", "grtcode_tpu_c")]
+    print(f"phase 2 build: {total:.2f} s for all four: " + "; ".join(reports),
           flush=True)
 
 
@@ -1271,9 +1306,12 @@ def phase_circ_app(info, dev, card):
         return built[-1]
 
     go.parse_par_file, circ.build_driver = timed_parse, keep_driver
-    # (b) The app, two-stream, with every launch count starting at 0.
+    # (b) The app, two-stream, with every launch and parse count starting
+    # at 0.
     vk.accumulate_voigt.launches = 0
     vk.voigt_line_sample_reference.launches = 0
+    parses = parse.parses
+    parses.update(native=0, python=0)
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1285,6 +1323,23 @@ def phase_circ_app(info, dev, card):
     app_launches = vk.accumulate_voigt.launches
     check(vk.voigt_line_sample_reference.launches == 0,
           "the plain version ran in the CIRC app")
+    parses = dict(parses)
+    check(parses == {"native": 14, "python": 0},
+          f"parses by path {parses}: expected all 14 native")
+    # One parse of the file's H2O lines by the native scanner and by the
+    # Python loop, in turns on this host.
+    from grtcode_tpu_torch import native
+    scan = {"native": [], "python": []}
+    native_scan = native.parse_par_native
+    for way in ("native", "python", "python", "native"):
+        if way == "python":
+            native.parse_par_native = lambda *a, **k: None
+        try:
+            t = time.perf_counter()
+            parse(par, 1)
+            scan[way].append(time.perf_counter() - t)
+        finally:
+            native.parse_par_native = native_scan
     driver = built[0]
     mols = {g: len(gas.molecules) for g, gas in
             (("lw", driver.lw_gas), ("sw", driver.sw_gas))}
@@ -1406,6 +1461,7 @@ def phase_circ_app(info, dev, card):
     info["phase10"] = dict(
         card=card, records=n_records, lines=lines, write_s=write_s,
         app_s=app_s, parse_s=sum(parse_s), parses=len(parse_s),
+        parses_by_path=parses, h2o_parse_s=scan,
         app_launches=app_launches, values=values,
         reference=circ.CASE1_REFERENCE, nw=[driver.lw_gas.grid.n,
                                             driver.sw_gas.grid.n],
@@ -1426,7 +1482,10 @@ def phase_circ_app(info, dev, card):
           f"{write_s:.1f} s; circ.main (LW {driver.lw_gas.grid.n} + SW "
           f"{driver.sw_gas.grid.n} points, {lines['lw']} + {lines['sw']} "
           f"lines) {app_s:.1f} s wall of which the .par parse "
-          f"{sum(parse_s):.1f} s ({len(parse_s)} parses), {app_launches} K1 "
+          f"{sum(parse_s):.2f} s ({parses['native']} parses by the native "
+          f"scanner, {parses['python']} in Python; one parse of the file's "
+          f"H2O lines, in turns: native {np.mean(scan['native']):.3f} s, "
+          f"Python {np.mean(scan['python']):.3f} s), {app_launches} K1 "
           f"launches, no plain launch; {table}; 16-stream DISORT step "
           f"{ms:.1f} ms (steps {[round(v, 3) for v in step_s]} s) against "
           f"the two-stream step's {two_ms:.1f} ms ({added_share:.1%} of the "
@@ -1448,6 +1507,448 @@ def phase_circ_app(info, dev, card):
           f"{block_ms:.1f} ms, peak {block_peak / 2 ** 30:.2f} GiB above "
           f"its inputs", flush=True)
     return launches, k1_err
+
+
+def _run_on_rank(run):
+    """``run()`` timed on this rank after a barrier (when a group is up),
+    with K1's launch counts and the device's peak memory from 0: (its
+    result, {s, peak_bytes, k1_launches, plain_launches})."""
+    import torch
+    import torch.distributed as dist
+    from grtcode_tpu_torch.gas_optics import voigt_kernel as vk
+
+    if dist.is_initialized():
+        dist.barrier()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    vk.accumulate_voigt.launches = 0
+    vk.voigt_line_sample_reference.launches = 0
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return out, dict(s=time.perf_counter() - t0,
+                     peak_bytes=torch.cuda.max_memory_allocated(),
+                     k1_launches=vk.accumulate_voigt.launches,
+                     plain_launches=vk.voigt_line_sample_reference.launches)
+
+
+def _against(got, want):
+    """(bit-identical, largest |got - want| / |want|, the columns that are
+    bit-identical in every flux) of two {flux: (B, nlev)} dicts."""
+    import torch
+    rel, same = 0.0, None
+    for k, w in want.items():
+        d = (got[k] - w).abs()
+        rel = max(rel, float(torch.where(w != 0, d / w.abs(), d).max()))
+        cols = (d == 0).all(-1)
+        same = cols if same is None else same & cols
+    return bool(same.all()), rel, int(same.sum())
+
+
+def _mesh_rank(rank, store, out_dir):
+    """One of phase 11's two ranks, both on cuda:0 in one gloo group (NCCL
+    refuses two ranks on one GPU: "Duplicate GPU detected"): the
+    line_sample cell without a mesh and on meshes (1 x 2) and (2 x 1),
+    then the all-sky cell's segments with each rank a node of its own.
+    Rank 0 then runs the same two segments and the whole all-sky batch in
+    one process without a group.  Writes out_dir/rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+    from grtcode_tpu_torch import examples
+    from grtcode_tpu_torch.framework.driver import RadiationDriver
+    from grtcode_tpu_torch.parallel import distributed, make_mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    dev = distributed.initialize(store, 2, rank, timeout_s=MESH_TIMEOUT_S)
+    report = dict(rank=rank, device=str(dev), backend=dist.get_backend())
+    try:
+        t0 = time.perf_counter()
+        lw_gas, sw_gas, solar, batch, _, _ = examples.rfmip_like(device=dev)
+        driver = RadiationDriver(lw_gas, sw_gas, solar)
+        atm = examples.atmosphere(batch)
+        report["setup_s"] = time.perf_counter() - t0
+        want = {}
+        for S in (2, 1):
+            want[S], report[f"single_S{S}"] = _run_on_rank(
+                lambda: driver.run(atm, spectral_chunks=S).tiers["csaf"])
+        for C, S in ((1, 2), (2, 1)):
+            mesh = make_mesh(C, S)
+            got, run = _run_on_rank(
+                lambda: driver.run(atm, mesh=mesh).tiers["csaf"])
+            run["identical"], run["max_rel"], run["identical_columns"] = \
+                _against(got, want[S])
+            report[f"mesh_{C}x{S}"] = run
+        del driver, want, got
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        adriver, aatm = examples.allsky_like(device=dev)
+        report["allsky_setup_s"] = time.perf_counter() - t0
+        # From here on each rank is a node of its own, so the segments
+        # are two; the group stays gloo, both ranks sharing cuda:0.
+        os.environ["LOCAL_WORLD_SIZE"] = "1"
+        _, report["segment"] = _run_on_rank(
+            lambda: distributed.run_driver_segment(
+                adriver, aatm, os.path.join(out_dir, "mesh"), "allsky"))
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        def single():
+            for p in range(2):
+                distributed.run_driver_segment(
+                    adriver, aatm, os.path.join(out_dir, "single"),
+                    "allsky", process_index=p, num_processes=2)
+            return adriver.run(aatm).tiers
+        whole, report["single_segments"] = _run_on_rank(single)
+        np.savez(os.path.join(out_dir, "whole.npz"),
+                 **{f"{t}_{k}": v.cpu().numpy() for t, fx in whole.items()
+                    for k, v in fx.items()})
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+
+
+def phase_mesh(info, dev, card):
+    """The (columns x spectral) mesh and the segments on the card.
+    Returns the line_sample cell (driver, atmosphere, B, nlayers) for
+    phase 12 and K1's launches on the mesh runs and segments."""
+    import torch
+    import torch.distributed as dist
+    from grtcode_tpu_torch import examples
+    from grtcode_tpu_torch.framework.driver import (RadiationDriver,
+                                                    _mesh_all_gather)
+    from grtcode_tpu_torch.parallel import distributed, dryrun, make_mesh
+    from grtcode_tpu_torch.parallel.mesh import COLUMNS_AXIS, SPECTRAL_AXIS
+
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    out_dir = os.path.abspath(tempfile.mkdtemp(dir=BUILD_DIR))
+    t_phase = time.perf_counter()
+    lw_gas, sw_gas, solar, batch, B, nlayers = examples.rfmip_like(
+        device=dev)
+    driver = RadiationDriver(lw_gas, sw_gas, solar)
+    atm = examples.atmosphere(batch)
+    n_mol = len(lw_gas.molecules) + len(sw_gas.molecules)
+
+    # (a) A world of one NCCL rank on cuda:0, make_mesh(1, 1).  A mesh
+    # of one gathers nothing, so the mesh's all_gather of CUDA tensors
+    # (no host copy under NCCL) is also called along each axis.
+    distributed.initialize(f"file://{out_dir}/store_nccl", 1, 0,
+                           timeout_s=MESH_TIMEOUT_S)
+    try:
+        backend = dist.get_backend()
+        check(backend == "nccl", f"a world of one rank on {dev}: {backend}")
+        want, single = _run_on_rank(lambda: driver.run(atm).tiers["csaf"])
+        mesh = make_mesh(1, 1)
+        got, one = _run_on_rank(
+            lambda: driver.run(atm, mesh=mesh).tiers["csaf"])
+        gathers = {}
+        for axis in (COLUMNS_AXIS, SPECTRAL_AXIS):
+            for k, v in got.items():
+                parts, run = _run_on_rank(
+                    lambda: _mesh_all_gather(mesh, axis, v))
+                check(len(parts) == 1 and parts[0].device == dev
+                      and parts[0].data_ptr() != v.data_ptr()
+                      and torch.equal(parts[0].view(torch.int32),
+                                      v.view(torch.int32)),
+                      f"NCCL all_gather of {k} along {axis}: "
+                      f"{[(p.device, p.shape) for p in parts]}")
+                gathers[f"{axis}_{k}"] = run["s"]
+    finally:
+        dist.destroy_process_group()
+    one["gather_s"] = gathers
+    one["identical"], one["max_rel"], _ = _against(got, want)
+    check(one["identical"], f"NCCL (1 x 1) mesh differs from run(): max rel "
+          f"{one['max_rel']:.2e}")
+    check(one["k1_launches"] == n_mol and one["plain_launches"] == 0,
+          f"NCCL (1 x 1): {one['k1_launches']} K1 launches")
+    del want, got
+
+    # (b) Two ranks on cuda:0 (gloo), spawned with a deadline.
+    t0 = time.perf_counter()
+    dryrun.spawn(_mesh_rank, 2, (f"file://{out_dir}/store_gloo", out_dir),
+                 timeout_s=MESH_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    launches = one["k1_launches"]
+    for rep in ranks:
+        check(rep["backend"] == "gloo" and rep["device"] == str(dev),
+              f"rank {rep['rank']}: {rep['backend']} on {rep['device']}")
+        for key in ("mesh_1x2", "mesh_2x1", "segment"):
+            run = rep[key]
+            check(run["plain_launches"] == 0,
+                  f"rank {rep['rank']} {key}: the plain version ran")
+            launches += run["k1_launches"]
+        for key in ("mesh_1x2", "mesh_2x1"):
+            check(rep[key]["k1_launches"] == n_mol,
+                  f"rank {rep['rank']} {key}: {rep[key]['k1_launches']} K1 "
+                  f"launches, expected {n_mol}")
+        check(rep["mesh_1x2"]["identical"], f"rank {rep['rank']}: (1 x 2) "
+              f"differs from run(spectral_chunks=2): max rel "
+              f"{rep['mesh_1x2']['max_rel']:.2e}")
+        check(rep["mesh_2x1"]["max_rel"] <= TOL_MESH_COLUMNS,
+              f"rank {rep['rank']}: (2 x 1) against run(): max rel "
+              f"{rep['mesh_2x1']['max_rel']:.2e} > {TOL_MESH_COLUMNS}")
+    combined = distributed.combine_column_segments(
+        os.path.join(out_dir, "mesh"), "allsky")
+    single_segs = distributed.combine_column_segments(
+        os.path.join(out_dir, "single"), "allsky")
+    check(sorted(combined) == sorted(single_segs) and len(combined) == 12,
+          f"segment arrays {sorted(combined)}")
+    for k, v in single_segs.items():
+        check(combined[k].tobytes() == v.tobytes(),
+              f"segments {k}: the two ranks' differ from one process's")
+    with np.load(os.path.join(out_dir, "whole.npz")) as z:
+        whole = {k: torch.as_tensor(z[k]) for k in z.files}
+    seg_identical, seg_rel, _ = _against(
+        {k: torch.as_tensor(v) for k, v in combined.items()}, whole)
+    check(seg_rel <= TOL_MESH_COLUMNS, f"segments against the whole all-sky "
+          f"batch: max rel {seg_rel:.2e} > {TOL_MESH_COLUMNS}")
+    phase_s = time.perf_counter() - t_phase
+
+    info["phase11"] = dict(card=card, nccl_1x1=one, nccl_single=single,
+                           ranks=ranks, spawn_s=spawn_s, phase_s=phase_s,
+                           segments_identical_to_whole=seg_identical,
+                           segments_max_rel_to_whole=seg_rel,
+                           launches=launches)
+
+    def run_line(key):
+        return "; ".join(
+            f"rank {rep['rank']} {rep[key]['s'] * 1e3:.1f} ms, peak "
+            f"{rep[key]['peak_bytes'] / 2 ** 30:.2f} GiB, "
+            f"{rep[key]['k1_launches']} K1 launches" for rep in ranks)
+
+    m21 = max(rep["mesh_2x1"]["max_rel"] for rep in ranks)
+    cols21 = min(rep["mesh_2x1"]["identical_columns"] for rep in ranks)
+    print(f"phase 11 mesh and segments ({card}): B={B} x {nlayers} layers x "
+          f"({lw_gas.grid.n} + {sw_gas.grid.n}) points; (a) NCCL world of one "
+          f"on {dev}, make_mesh(1, 1): {one['s'] * 1e3:.1f} ms (run() "
+          f"{single['s'] * 1e3:.1f} ms), peak "
+          f"{one['peak_bytes'] / 2 ** 30:.2f} GiB, {one['k1_launches']} K1 "
+          f"launches, bit-identical to run(); NCCL all_gather of the 4 "
+          f"fluxes along both axes on {dev}, bit-identical, "
+          f"{sum(gathers.values()) * 1e3:.2f} ms for the 8; (b) 2 ranks on "
+          f"{dev} (gloo), "
+          f"spawned in {spawn_s:.1f} s (setup {ranks[0]['setup_s']:.1f} + "
+          f"{ranks[0]['allsky_setup_s']:.1f} s a rank): mesh (1 x 2) "
+          f"[{run_line('mesh_1x2')}] bit-identical to run(spectral_chunks=2) "
+          f"on both ranks; mesh (2 x 1) [{run_line('mesh_2x1')}] against "
+          f"run(): {cols21} of {B} columns bit-identical, max rel {m21:.2e} "
+          f"(bar {TOL_MESH_COLUMNS}); run_driver_segment, all-sky cell, 2 "
+          f"segments [{run_line('segment')}] combined byte-identical to the "
+          f"same segments in one process "
+          f"({ranks[0]['single_segments']['s'] * 1e3:.1f} ms with the whole "
+          f"batch), against the whole batch "
+          f"{'bit-identical' if seg_identical else f'max rel {seg_rel:.2e}'}"
+          f"; {launches} K1 launches in all, none plain; phase "
+          f"{phase_s:.1f} s", flush=True)
+    return (driver, atm, B, nlayers), launches
+
+
+def phase_aux(info, dev, card, cell):
+    """Metrics, a profiler trace, debug mode and the C ABI on the card.
+    Returns K1's launches on the steps and the ABI's optical depths."""
+    import ctypes
+    import dataclasses
+    import torch
+    from tools.goldens import driver_inputs
+    from grtcode_tpu_torch import bindings
+    from grtcode_tpu_torch.bindings import capi_impl
+    from grtcode_tpu_torch.gas_optics import voigt_kernel as vk
+    from grtcode_tpu_torch.solvers.longwave import longwave_fluxes
+    from grtcode_tpu_torch.solvers.shortwave import shortwave_fluxes
+    from grtcode_tpu_torch.spectral import SpectralGrid
+    from grtcode_tpu_torch.utils import debug, metrics
+
+    t_phase = time.perf_counter()
+    driver, atm, B, nlayers = cell
+    nw = driver.lw_gas.grid.n + driver.sw_gas.grid.n
+    n_mol = len(driver.lw_gas.molecules) + len(driver.sw_gas.molecules)
+    vk.accumulate_voigt.launches = 0
+    vk.voigt_line_sample_reference.launches = 0
+
+    # (a) Metrics: three steps, points counted as phase 5 counts them.
+    m = metrics.Metrics()
+    points = metrics.grid_points(B, nlayers, nw)
+    for _ in range(3):
+        with m.phase("line_sample step", points=points) as box:
+            box["result"] = driver.run(atm)
+    st = m.phases["line_sample step"]
+    rate = m.points_per_second("line_sample step")
+    check(st.calls == 3 and st.points == 3 * B * nlayers * nw
+          and rate == st.points / st.seconds, f"metrics {st}")
+
+    # (b) A profiler trace of one step, under build/.
+    logdir = os.path.join(BUILD_DIR, "trace")
+    with metrics.profiler_trace(logdir):
+        driver.run(atm)
+        torch.cuda.synchronize()
+    trace_path = os.path.join(logdir, "trace.json")
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k1_events = sum("voigt_line_sample_kernel" in e.get("name", "")
+                    for e in kernels)
+    check(k1_events == n_mol, f"trace: {k1_events} K1 kernels, expected "
+          f"{n_mol}")
+
+    # (c) Debug mode: no trap on the clean step, a trap on one NaN
+    # temperature.
+    t0 = time.perf_counter()
+    with debug.debug_mode():
+        driver.run(atm)
+        torch.cuda.synchronize()
+    debug_s = time.perf_counter() - t0
+    t_lev = atm.level_temperature.copy()
+    t_lev[3, 20] = np.nan
+    trap = None
+    try:
+        with debug.debug_mode():
+            driver.run(dataclasses.replace(atm, level_temperature=t_lev))
+    except FloatingPointError as e:
+        trap = str(e)
+    check(trap is not None, "debug_mode let a NaN temperature through")
+    launches = vk.accumulate_voigt.launches
+    check(vk.voigt_line_sample_reference.launches == 0,
+          "the plain version ran in phase 12")
+
+    # (d) The C ABI through ctypes on cuda:0, with no device selected (the
+    # default is the current CUDA device): H2O optical depth from the
+    # golden's .par (one K1 launch per band), LW fluxes, Rayleigh + gas
+    # optics and SW fluxes, each against the port's direct call; then
+    # grt_create_device(0) selects cuda:0 and gives the same LW fluxes.
+    lib = bindings.load()
+
+    def handle(fn, *args):
+        h = ctypes.c_int64()
+        rc = getattr(lib, fn)(*args, ctypes.byref(h))
+        check(rc == 0, f"{fn}: rc {rc}: {lib.grt_errstr()}")
+        return h
+
+    def ok(fn, *args):
+        rc = getattr(lib, fn)(*args)
+        check(rc == 0, f"{fn}: rc {rc}: {lib.grt_errstr()}")
+
+    def ptr(a):
+        return a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+
+    def f32(a):
+        return torch.as_tensor(np.array(a, np.float64), dtype=torch.float32,
+                               device=dev)
+
+    def same(got, want):
+        return got.tobytes() == want.cpu().numpy().astype(
+            np.float64).ravel().tobytes()
+
+    ok("grt_initialize")
+    check(capi_impl._default_device is None,
+          f"a device was selected before phase 12: "
+          f"{capi_impl._default_device}")
+    p = np.ascontiguousarray(atm.level_pressure[0], np.float64)
+    t = np.ascontiguousarray(atm.level_temperature[0], np.float64)
+    ppmv = np.ascontiguousarray(atm.ppmv[1][0], np.float64)
+    nlev = p.size
+    vk.accumulate_voigt.launches = 0
+    with tempfile.TemporaryDirectory() as d:
+        driver_inputs.write_inputs(d)
+
+        def gas_optics(grid_args):
+            grid = handle("grt_create_spectral_grid",
+                          *map(ctypes.c_double, grid_args))
+            gas = handle("grt_create_gas_optics", grid, ctypes.c_int(nlev),
+                         os.path.join(d, "synthetic.par").encode(), b"", b"")
+            go_dev = capi_impl._get(gas.value)["go"].device
+            check(go_dev == dev, f"gas optics on {go_dev} with no device "
+                  f"selected")
+            ok("grt_add_molecule", gas, ctypes.c_int(1), ctypes.c_double(0),
+               ctypes.c_double(0))
+            ok("grt_set_molecule_ppmv", gas, ctypes.c_int(1), ptr(ppmv))
+            opt = handle("grt_create_optics", ctypes.c_int(nlev - 1), grid)
+            ok("grt_calculate_optical_depth", gas, ptr(p), ptr(t), opt)
+            return grid, opt
+
+        lw_grid_args, sw_grid_args = driver_inputs.LW_GRID, \
+            driver_inputs.SW_GRID
+        lw_grid, lw_opt = gas_optics(lw_grid_args)
+        sw_grid, gas_opt = gas_optics(sw_grid_args)
+        solar = handle("grt_create_solar_flux", sw_grid,
+                       os.path.join(d, "solar.csv").encode())
+    abi_launches = vk.accumulate_voigt.launches
+    check(abi_launches == 2, f"{abi_launches} K1 launches through the ABI")
+    lw = capi_impl._get(lw_opt.value)
+    grid = SpectralGrid(*lw_grid_args)
+    emis = np.full(grid.n, 0.98)
+    up, down = np.zeros(nlev * grid.n), np.zeros(nlev * grid.n)
+    ok("grt_longwave_fluxes", lw_opt, ctypes.c_double(t[-1] + 1.5), ptr(t),
+       None, ptr(emis), ptr(up), ptr(down))
+    want = longwave_fluxes(
+        f32(lw["tau"]), f32(lw["omega"]), f32(np.float32(t[-1] + 1.5)),
+        f32(0.5 * (t[:-1] + t[1:])), f32(t), f32(emis),
+        grid.wavenumbers(dev))
+    check(same(up, want[0]) and same(down, want[1]),
+          "LW fluxes through the ABI differ from the direct call")
+    check(np.isfinite(up).all() and up.max() > 0, "LW fluxes through the ABI")
+    ok("grt_use_device", handle("grt_create_device", ctypes.c_int(0)))
+    check(capi_impl._default_device == dev,
+          f"grt_create_device(0) gave {capi_impl._default_device}")
+    up0, down0 = np.zeros_like(up), np.zeros_like(down)
+    ok("grt_longwave_fluxes", lw_opt, ctypes.c_double(t[-1] + 1.5), ptr(t),
+       None, ptr(emis), ptr(up0), ptr(down0))
+    check(up0.tobytes() == up.tobytes() and down0.tobytes() == down.tobytes(),
+          "LW fluxes on grt_create_device(0) differ from the default's")
+
+    ray = handle("grt_create_optics", ctypes.c_int(nlev - 1), sw_grid)
+    ok("grt_rayleigh_scattering", ray, ptr(p))
+    both = handle("grt_create_optics", ctypes.c_int(nlev - 1), sw_grid)
+    parts = np.array([gas_opt.value, ray.value], dtype=np.int64)
+    ok("grt_add_optics", both,
+       parts.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), ctypes.c_int(2))
+    sw = capi_impl._get(both.value)
+    grid = SpectralGrid(*sw_grid_args)
+    alb = np.full(grid.n, 0.15)
+    mu, tsi = float(atm.cos_zenith[0]), float(atm.total_solar_irradiance[0])
+    sw_up, sw_down = np.zeros(nlev * grid.n), np.zeros(nlev * grid.n)
+    ok("grt_shortwave_fluxes", both, ctypes.c_double(mu),
+       ctypes.c_double(0.5), ptr(alb), ptr(alb), ctypes.c_double(tsi),
+       solar, ptr(sw_up), ptr(sw_down))
+
+    def scalar(v):
+        return f32(np.float32(v))
+
+    want = shortwave_fluxes(
+        f32(sw["tau"]), f32(sw["omega"]), f32(sw["g"]), scalar(mu),
+        scalar(0.5), f32(alb), f32(alb), scalar(tsi),
+        capi_impl._get(solar.value).incident_flux.to(dev))
+    check(same(sw_up, want[0]) and same(sw_down, want[1]),
+          "SW fluxes through the ABI differ from the direct call")
+    check(np.isfinite(sw_down).all() and sw_down.max() > 0,
+          "SW fluxes through the ABI")
+    for h in (lw_opt, gas_opt, ray, both, solar, lw_grid, sw_grid):
+        ok("grt_destroy", h)
+    phase_s = time.perf_counter() - t_phase
+
+    info["phase12"] = dict(
+        card=card, metrics=dict(seconds=st.seconds, calls=st.calls,
+                                points=st.points, points_per_s=rate),
+        report=m.report(), trace=trace_path, trace_events=len(events),
+        trace_kernels=len(kernels), trace_k1=k1_events, debug_s=debug_s,
+        trap=trap, launches=launches, abi_launches=abi_launches,
+        abi_nw=[lw["tau"].shape[1], sw["tau"].shape[1]], phase_s=phase_s)
+    print(f"phase 12 aux modules ({card}): Metrics over 3 line_sample steps "
+          f"{st.seconds / 3 * 1e3:.1f} ms a step, {rate:.4e} points/s "
+          f"({points} points a step, phase 5's count; phase 5 "
+          f"{info['phase5']['points_per_s']:.4e}); profiler_trace "
+          f"{trace_path}: {len(events)} events, {len(kernels)} kernels, "
+          f"{k1_events} K1; debug_mode: clean step {debug_s:.2f} s, no trap; "
+          f"one NaN temperature trapped: {trap!r}; C ABI on {dev} with no "
+          f"device selected: H2O optical depth ({abi_launches} K1 "
+          f"launches), LW fluxes ({lw['tau'].shape[1]} points) and "
+          f"Rayleigh + gas SW fluxes ({sw['tau'].shape[1]} points) "
+          f"bit-identical to the port's direct calls; "
+          f"grt_create_device(0) gives {capi_impl._default_device} and the "
+          f"same LW fluxes; phase {phase_s:.1f} s", flush=True)
+    return launches + abi_launches
 
 
 def main():
@@ -1476,22 +1977,26 @@ def main():
     launches9 = phase_allsky(info, dev, info["card"])
     torch.cuda.empty_cache()
     launches10, err10 = phase_circ_app(info, dev, info["card"])
+    torch.cuda.empty_cache()
+    cell, launches11 = phase_mesh(info, dev, info["card"])
+    launches12 = phase_aux(info, dev, info["card"], cell)
     check("jax" not in sys.modules, "JAX was imported")
     info["seconds"] = time.perf_counter() - t0
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(info, f, indent=1, default=str)
-    # K1 runs on all four paths (all 11 molecules at 0.1, the 4 SW
-    # molecules in each block of the streamed one, 18 per all-sky step, 14
-    # per CIRC run); its launches are the four counts.
+    # K1 runs on every path (all 11 molecules at 0.1, the 4 SW molecules
+    # in each block of the streamed one, 18 per all-sky step, 14 per CIRC
+    # run, 11 per rank on a mesh, the segments' and phase 12's steps); its
+    # launches are the six counts.
     # No PyTorch call computes a Voigt sum over a line list: library_ms is
     # null for both.
     print(json.dumps({"kernels": [
         {"name": "voigt_line_sample", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES,
          "launches": k1_launches + launches8["voigt_line_sample"]
-         + launches9 + launches10,
+         + launches9 + launches10 + launches11 + launches12,
          "max_abs_err": max(err3, err5, err10), "ms": o2["ms"],
          "plain_ms": o2["plain_ms_mean"], "bound_ms": o2["bound_ms"],
          "bound_by": o2["bound_by"], "library_ms": None},

@@ -284,8 +284,8 @@ def main(argv=None, *, device=None):
                         "-ice-path Pade files).")
     args = p.parse_args(argv)
     cli.configure(args)
-    dev = cli.device_from_args(args, device)
-    cli.mesh_from_args(args)
+    mesh = cli.mesh_from_args(args, device)
+    dev = cli.device_from_args(args, device, mesh)
 
     lw_grid, sw_grid = cli.grids_from_args(args)
     if args.input_file:
@@ -313,8 +313,10 @@ def main(argv=None, *, device=None):
             ice=PadeCloudOptics.from_netcdf(args.ice_path, dev)
         ).driver_callback()
 
-    res = driver.run(atm, integrated=True,
+    res = driver.run(atm, integrated=True, mesh=mesh,
                      spectral_chunks=args.spectral_chunks)
+    if not cli.writes_output(mesh):
+        return res
 
     # Per-level flux output file (circ.c create_flux_file/write_output,
     # :527-560: rlu/rld/rsu/rsd over the level dimension).

@@ -389,8 +389,8 @@ def main(argv=None, *, device=None):
                       cias=list(CIA_PAIRS))
     args = p.parse_args(argv)
     cli.configure(args)
-    dev = cli.device_from_args(args, device)
-    cli.mesh_from_args(args)
+    mesh = cli.mesh_from_args(args, device)
+    dev = cli.device_from_args(args, device, mesh)
 
     xs = slice(args.x, None if args.X is None else args.X + 1)
     ys = slice(args.y, None if args.Y is None else args.Y + 1)
@@ -432,8 +432,10 @@ def main(argv=None, *, device=None):
             liquid=PadeCloudOptics.from_netcdf(args.liquid_path, dev),
             ice=PadeCloudOptics.from_netcdf(args.ice_path, dev)
         ).driver_callback()
-    res = driver.run(atm, integrated=args.integrated,
+    res = driver.run(atm, integrated=args.integrated, mesh=mesh,
                      spectral_chunks=args.spectral_chunks)
+    if not cli.writes_output(mesh):
+        return
     with Dataset(args.input_file) as nc:
         nlon = nc.dim_size("lon")
         nlat = nc.dim_size("lat")

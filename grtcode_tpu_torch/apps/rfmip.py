@@ -256,8 +256,8 @@ def main(argv=None, *, device=None):
                       cfcs=list(CFC_VARS), cias=list(CIA_PAIRS))
     args = p.parse_args(argv)
     cli.configure(args)
-    dev = cli.device_from_args(args, device)
-    cli.mesh_from_args(args)
+    mesh = cli.mesh_from_args(args, device)
+    dev = cli.device_from_args(args, device, mesh)
 
     molecules = [m for m in MOLECULE_VARS if getattr(args, m.name, False)]
     cfc_opts = [o for o in CFC_VARS
@@ -280,12 +280,13 @@ def main(argv=None, *, device=None):
         cli.register_cross_sections(driver, args,
                                     cfc_options=tuple(CFC_VARS),
                                     cia_pairs=CIA_PAIRS)
-    res = driver.run(atm, integrated=args.integrated,
+    res = driver.run(atm, integrated=args.integrated, mesh=mesh,
                      spectral_chunks=args.spectral_chunks)
-    write_fluxes(args.output, res, atm.level_pressure, x=args.x,
-                 user_level=args.flux_at_level, lw_grid=lw_grid,
-                 sw_grid=sw_grid)
-    print(f"wrote {args.output}")
+    if cli.writes_output(mesh):
+        write_fluxes(args.output, res, atm.level_pressure, x=args.x,
+                     user_level=args.flux_at_level, lw_grid=lw_grid,
+                     sw_grid=sw_grid)
+        print(f"wrote {args.output}")
 
 
 if __name__ == "__main__":

@@ -184,6 +184,43 @@ def atmosphere(batch: dict) -> Atmosphere:
         albedo=np.full((B, 2), SURFACE_ALBEDO))
 
 
+def ice_pade_table(nbnd: int = 16, w0: float = 1.0, wn: float = 50000.0,
+                   seed: int = 1, *, device) -> PadeCloudOptics:
+    """A synthetic ice table whose optics are physical at every radius of
+    its size regimes ([2, 20] and [20, 90] microns about 10 and 40, so the
+    offset x from the reference radius has |x| <= 50): each Pade
+    numerator is p0 x^2 + p1 x + p2 and each denominator q0 x^2 + q1 x +
+    1 with |p0|, |q0| <= 1e-6 and |p1|, |q1| <= 1e-5, so the x terms move
+    a ratio by at most 3.5e-3 and the denominators stay within 3e-3 of 1.
+    The constant terms, ice-like: extinction 0.042-0.078 m2 g-1, single-
+    scattering albedo 0.855-0.945, asymmetry 0.675-0.825; hence 0 < ssa <
+    0.96 and 0 < g < 0.84 everywhere.  (synthetic_pade_table's larger
+    denominator terms give ssa up to 1.47 and g up to 1.76 at cirrus
+    radii, where DISORT returns NaN.)"""
+    rng = np.random.default_rng(seed)
+    edges = np.linspace(w0, wn, nbnd + 1)
+    band_lims = np.stack([edges[:-1], edges[1:]])
+    sizereg = np.array([[2.0, 20.0], [20.0, 90.0]])
+    ref = np.array([10.0, 40.0])
+    scale = np.array([1e-6, 1e-5])
+
+    def coeffs(base, jitter):
+        p = np.concatenate(
+            [rng.uniform(-1.0, 1.0, (nbnd, 2, 2)) * scale,
+             base * rng.uniform(1.0 - jitter, 1.0 + jitter, (nbnd, 2, 1))],
+            axis=-1)
+        q = np.concatenate(
+            [rng.uniform(-1.0, 1.0, (nbnd, 2, 2)) * scale,
+             np.ones((nbnd, 2, 1))], axis=-1)
+        return p, q
+
+    ep, eq = coeffs(0.06, 0.3)
+    sp, sq = coeffs(0.90, 0.05)
+    ap, aq = coeffs(0.75, 0.1)
+    return PadeCloudOptics.from_arrays(band_lims, sizereg, ref, ep, eq, sp,
+                                       sq, ap, aq, device=device)
+
+
 def allsky_like(smoke: bool = False, *, device):
     """(RadiationDriver, Atmosphere) of the all-sky step: the gas optics,
     solar spectrum and batch of :func:`rfmip_like` (line_sample at LW 0.1)
@@ -196,8 +233,9 @@ def allsky_like(smoke: bool = False, *, device):
       IWC up to 0.02 g m-3, hydrostatic layer thickness;
     * every odd column at night (cos zenith -0.9 to 0), so day compaction
       is on the path;
-    * synthetic Pade liquid and ice tables (16 bands over 1-50,000 cm-1,
-      seeds 0 and 1) drawn into one stochastic subcolumn per column.
+    * a synthetic Pade liquid table (16 bands over 1-50,000 cm-1, seed 0)
+      and the physical ice table of :func:`ice_pade_table`, drawn into one
+      stochastic subcolumn per column.
     """
     lw_gas, sw_gas, solar, batch, B, nlayers = rfmip_like(smoke,
                                                           device=device)
@@ -233,8 +271,7 @@ def allsky_like(smoke: bool = False, *, device):
     clouds = CloudOpticsLib(
         liquid=synthetic_pade_table(nbnd=16, w0=1.0, wn=50000.0, seed=0,
                                     device=device),
-        ice=synthetic_pade_table(nbnd=16, w0=1.0, wn=50000.0, seed=1,
-                                 device=device))
+        ice=ice_pade_table(device=device))
     driver = RadiationDriver(lw_gas, sw_gas, solar,
                              cloud_optics=clouds.driver_callback(),
                              num_subcolumns=1)

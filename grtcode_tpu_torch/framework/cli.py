@@ -4,12 +4,17 @@ grtcode_tpu/framework/cli.py).
 The reference's shared flag set (framework/src/driver.c:872-935) plus
 per-app flags, on stdlib argparse, with the JAX package's flag names and
 defaults.  ``-d N`` selects the CUDA device ``cuda:N`` (``cuda:0`` without
-it); an app never carries on on the CPU when CUDA is missing.
+it); an app never carries on on the CPU when CUDA is missing.  ``-mesh CxS``
+runs the app over a (columns x spectral) mesh of ranks, one per GPU, in a
+process group that ``torchrun --nproc-per-node C*S`` launches; each rank
+then runs on its own GPU and the rank at mesh coordinate (0, 0) writes the
+output.
 """
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 
 import torch
 
@@ -57,23 +62,41 @@ def shared_parser(description: str) -> argparse.ArgumentParser:
                         "memory at fine resolutions like -r-lw 0.01.")
     p.add_argument("-mesh", default=None, metavar="CxS",
                    help="Shard over a (columns x spectral) device mesh, "
-                        "e.g. '4x2' (not in this package yet: ROADMAP "
-                        "queue 1, O6).")
+                        "e.g. '4x2' (launch under torchrun "
+                        "--nproc-per-node C*S).")
     return p
 
 
-def mesh_from_args(args):
-    """None without ``-mesh``.  A well-formed ``-mesh CxS`` raises
-    NotImplementedError (multi-GPU runs are ROADMAP queue 1, O6); a
-    malformed one exits."""
+def mesh_from_args(args, device=None):
+    """The (columns x spectral) mesh ``-mesh CxS`` asks for (None without
+    it) over the process group: the one already initialised, else the one
+    torchrun's environment describes (:func:`..parallel.distributed.
+    initialize`; ``device="cpu"`` puts the ranks on the CPU).  Exits when
+    ``-mesh`` is malformed or there is no process group to join."""
     if not getattr(args, "mesh", None):
         return None
     try:
         c, s = (int(v) for v in args.mesh.lower().split("x"))
     except ValueError:
         raise SystemExit(f"-mesh {args.mesh!r}: expected CxS, e.g. 4x2")
-    raise NotImplementedError(
-        f"-mesh {c}x{s}: multi-GPU runs are ROADMAP queue 1, O6")
+    import torch.distributed as dist
+
+    from ..parallel import distributed, make_mesh
+
+    if not dist.is_initialized():
+        if "WORLD_SIZE" not in os.environ:
+            raise SystemExit(
+                f"-mesh {c}x{s} runs one rank per GPU: launch the app under "
+                f"torchrun --nproc-per-node {c * s}")
+        distributed.initialize(device=device)
+    cpu = device is not None and torch.device(device).type == "cpu"
+    return make_mesh(c, s, device_type="cpu" if cpu else "cuda")
+
+
+def writes_output(mesh) -> bool:
+    """Whether this process writes the app's output: always without a
+    mesh, else only the rank at mesh coordinate (0, 0)."""
+    return mesh is None or not any(mesh.get_coordinate())
 
 
 def grids_from_args(args) -> tuple[SpectralGrid, SpectralGrid]:
@@ -91,12 +114,15 @@ def configure(args) -> None:
     vb.set_verbosity(vb.GRTCODE_INFO if args.verbose else vb.GRTCODE_WARN)
 
 
-def device_from_args(args, device=None) -> torch.device:
+def device_from_args(args, device=None, mesh=None) -> torch.device:
     """The device an app runs on: ``device`` when the caller passes one
-    (the CPU tests do), else ``cuda:N`` for ``-d N`` (``cuda:0`` without
-    it).  Exits when CUDA is not available or has no such device."""
+    (the CPU tests do), else the rank's GPU under a ``mesh``, else
+    ``cuda:N`` for ``-d N`` (``cuda:0`` without it).  Exits when CUDA is
+    not available or has no such device."""
     if device is not None:
         return torch.device(device)
+    if mesh is not None:
+        return torch.device("cuda", torch.cuda.current_device())
     if not torch.cuda.is_available():
         raise SystemExit("this application runs on an NVIDIA GPU and "
                          "torch.cuda.is_available() is false")

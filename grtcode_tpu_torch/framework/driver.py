@@ -94,6 +94,28 @@ def _take(tree, idx):
     return tree.index_select(0, idx)
 
 
+def _mesh_all_gather(mesh, axis: str, tensor):
+    """``tensor`` from every rank of this rank's line along mesh dimension
+    ``axis``, in mesh order.  A gloo group gathers through the host, so
+    CUDA tensors work on either backend."""
+    import torch.distributed as dist
+
+    group = mesh.get_group(axis)
+    t = tensor.contiguous()
+    if t.is_cuda and dist.get_backend(group) == "gloo":
+        t = t.cpu()
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t, group=group)
+    by_rank = dict(zip(dist.get_process_group_ranks(group), parts))
+    dim = mesh.mesh_dim_names.index(axis)
+    coord = list(mesh.get_coordinate())
+    line = []
+    for i in range(mesh.size(dim)):
+        coord[dim] = i
+        line.append(int(mesh.mesh[tuple(coord)]))
+    return [by_rank[r].to(tensor.device) for r in line]
+
+
 @dataclasses.dataclass
 class RadiationDriver:
     """Holds the per-band gas optics, the solar spectrum and the cloud
@@ -154,16 +176,40 @@ class RadiationDriver:
         ``column_chunk`` runs the batch in slices of that many columns and
         concatenates them on the device.  ``col_index`` gives each column's
         global id (``arange(B)`` by default), which keys its cloud
-        subcolumns, so a chunked or compacted run draws the same clouds as
-        the whole batch.  ``spectral_chunks`` streams each band through
-        that many blocks: ``ceil(n / S)`` rounded up to the band's
+        subcolumns, so a chunked, compacted or sharded run draws the same
+        clouds as the whole batch.  ``spectral_chunks`` streams each band
+        through that many blocks: ``ceil(n / S)`` rounded up to the band's
         ``block_quantum``, each reduced with its exact trapezoid weights
-        (integrated output only).  ``mesh`` raises
-        :class:`NotImplementedError` naming its ROADMAP item.
+        (integrated output only).  ``mesh`` (a (columns x spectral)
+        DeviceMesh, :func:`..parallel.mesh.make_mesh`) runs this rank's
+        column shard and spectral block and gathers the whole batch on
+        every rank (:meth:`_run_mesh`).
         """
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: multi-GPU runs are ROADMAP queue 1, O6")
+        ids = (np.arange(atm.batch) if col_index is None
+               else np.asarray(col_index))
+        col, cloud_args = self._inputs(atm, ids)
+        return self.run_columns(
+            col, atm.cos_zenith, cloud_args, clean=atm.clean,
+            clear=atm.clear, integrated=integrated, mesh=mesh,
+            column_chunk=column_chunk, spectral_chunks=spectral_chunks)
+
+    def run_columns(self, col: dict, mu=None, cloud_args: dict | None = None,
+                    *, clean: bool = True, clear: bool = True,
+                    integrated: bool = True, mesh=None,
+                    column_chunk: int | None = None,
+                    spectral_chunks: int | None = None) -> FluxResults:
+        """:meth:`run` on a batch already on the device.
+
+        ``col`` holds (B, ...) float32 tensors: "p_lev", "t_lev" [mb, K]
+        (B, nlevels); "t_lay" (B, nlayers); "t_surf" (B,); "emis" (B,
+        nw_lw); "vmr_lw", "cfc_vmr", "cia_vmr" {species id: (B, nlevels)};
+        with a shortwave band also "mu", "tsi" (B,), "albedo" (B, nw_sw),
+        "vmr_sw", and optionally "albedo_dif" (the diffuse beam's albedo,
+        "albedo" when absent); unless ``clean`` the aerosol fields of
+        :meth:`_inputs`.  ``mu`` is the cosine of the zenith angle as host
+        numpy (B,) (None: no shortwave); ``cloud_args`` the all-sky state
+        (needed unless ``clear``).
+        """
         if self.sw_solver not in ("two_stream", "disort"):
             raise ValueError(f"sw_solver={self.sw_solver!r}: expected "
                              "'two_stream' or 'disort'")
@@ -171,33 +217,45 @@ class RadiationDriver:
         if S < 1:
             raise ValueError(
                 f"spectral_chunks must be >= 1, got {spectral_chunks}")
-        if S > 1 and not integrated:
-            raise ValueError("spectral_chunks streams serially with "
-                             "integrated output only")
-        if not atm.clear and self.cloud_optics is None:
+        if S > 1 and (mesh is not None or not integrated):
+            raise ValueError("spectral_chunks streams serially on one "
+                             "device with integrated output (use a mesh "
+                             "for sharded or spectrally-resolved runs)")
+        if not clear and (self.cloud_optics is None or cloud_args is None):
             raise ValueError("cloudy atmosphere but no cloud_optics")
-        ids = (np.arange(atm.batch) if col_index is None
-               else np.asarray(col_index))
-        if column_chunk is not None and atm.batch > column_chunk:
-            parts = []
-            for lo in range(0, atm.batch, column_chunk):
-                idx = np.arange(lo, min(lo + column_chunk, atm.batch))
-                parts.append(self.run(atm.subset(idx), integrated=integrated,
-                                      col_index=ids[idx],
-                                      spectral_chunks=spectral_chunks))
-            return FluxResults(
-                tiers={t: {k: torch.cat([r.tiers[t][k] for r in parts])
-                           for k in parts[0].tiers[t]}
-                       for t in parts[0].tiers},
-                integrated=integrated)
+        batch = col["t_lev"].shape[0]
+        mu = None if mu is None else np.asarray(mu, np.float64)
+        state = (col, cloud_args, mu)
+        flags = dict(clean=clean, clear=clear, integrated=integrated,
+                     column_chunk=column_chunk)
+        if mesh is not None:
+            tiers = self._run_mesh(state, batch, mesh, **flags)
+        else:
+            tiers = self._run_rows(state, np.arange(batch), S=S, **flags)
+        return FluxResults(tiers=tiers, integrated=integrated)
 
-        col, cloud_args = self._inputs(atm, ids)
-        mu = (None if atm.cos_zenith is None
-              else np.asarray(atm.cos_zenith, np.float64))
+    def _run_rows(self, state, rows, clean, clear, integrated, column_chunk,
+                  S, block=None):
+        """The tiers of the batch's columns ``rows`` (``state`` is the
+        whole batch's (col, cloud_args, mu)): in slices of
+        ``column_chunk`` columns, with day compaction, summed over the S
+        spectral blocks of each band, or only block ``block`` of them (a
+        mesh rank's)."""
+        if column_chunk is not None and rows.size > column_chunk:
+            parts = [self._run_rows(state, rows[lo:lo + column_chunk],
+                                    clean, clear, integrated, None, S, block)
+                     for lo in range(0, rows.size, column_chunk)]
+            return {t: {k: torch.cat([r[t][k] for r in parts])
+                        for k in parts[0][t]}
+                    for t in parts[0]}
+
+        idx = torch.as_tensor(rows, device=self.device)
+        col, cloud_args = (_take(tree, idx) for tree in state[:2])
+        mu = None if state[2] is None else state[2][rows]
         with_sw = (self.sw_gas is not None and mu is not None
                    and bool(np.any(mu > 0.0)))
-        step = dict(clean=atm.clean, clear=atm.clear, integrated=integrated,
-                    S=S)
+        step = dict(clean=clean, clear=clear, integrated=integrated, S=S,
+                    block=block)
         if with_sw and not np.all(mu > 0.0):
             # Day compaction: the lit columns run LW + SW, the night ones
             # LW only, and both scatter back into their rows.
@@ -213,14 +271,62 @@ class RadiationDriver:
             for t, fluxes in out_lit.items():
                 out[t] = {}
                 for k, a_lit in fluxes.items():
-                    full = torch.zeros((atm.batch,) + a_lit.shape[1:],
+                    full = torch.zeros((rows.size,) + a_lit.shape[1:],
                                        dtype=a_lit.dtype, device=dev)
                     full[lit] = a_lit
                     full[night] = out_night[t][k]
                     out[t][k] = full
-        else:
-            out = self._step(col, cloud_args, with_sw=with_sw, **step)
-        return FluxResults(tiers=out, integrated=integrated)
+            return out
+        return self._step(col, cloud_args, with_sw=with_sw, **step)
+
+    def _run_mesh(self, state, batch, mesh, clean, clear, integrated,
+                  column_chunk):
+        """A mesh run as the JAX package's shard_map step computes it.
+
+        The rank at mesh coordinate (c, s) takes column shard c of the
+        batch (padded to a multiple of the columns axis by repeating its
+        first column, then split evenly) and spectral block s of each band
+        (the blocks of ``run(spectral_chunks=S)``), and runs day compaction
+        and the tiers on them as an unmeshed run does.  The S per-block
+        integrals are gathered over the spectral axis and summed in block
+        order, as the streamed run adds them, so a (1 x S) mesh is
+        bit-identical to ``run(spectral_chunks=S)`` (an all_reduce would
+        sum in the backend's order); spectral blocks are gathered along
+        the wavenumber axis and trimmed to the band.  The column shards
+        are gathered and trimmed, so every rank returns the whole batch.
+        """
+        from ..parallel.mesh import COLUMNS_AXIS, SPECTRAL_AXIS
+
+        C, S = (mesh.size(mesh.mesh_dim_names.index(a))
+                for a in (COLUMNS_AXIS, SPECTRAL_AXIS))
+        coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+        padded = np.concatenate([np.arange(batch),
+                                 np.zeros((-batch) % C, np.int64)])
+        per = padded.size // C
+        c = coord[COLUMNS_AXIS]
+        tiers = self._run_rows(state, padded[c * per:(c + 1) * per], clean,
+                               clear, integrated, column_chunk, S,
+                               block=coord[SPECTRAL_AXIS])
+        nw_lw = self.lw_gas.grid.n
+        nw_sw = self.sw_gas.grid.n if self.sw_gas is not None else nw_lw
+        out = {}
+        for t, fluxes in tiers.items():
+            out[t] = {}
+            for k, v in fluxes.items():
+                if S > 1:
+                    blocks = _mesh_all_gather(mesh, SPECTRAL_AXIS, v)
+                    if integrated:
+                        v = blocks[0]
+                        for b in blocks[1:]:
+                            v = v + b
+                    else:
+                        v = torch.cat(blocks, -1)[
+                            ..., :nw_lw if k in ("rlu", "rld") else nw_sw]
+                if C > 1:
+                    v = torch.cat(_mesh_all_gather(mesh, COLUMNS_AXIS,
+                                                   v))[:batch]
+                out[t][k] = v
+        return out
 
     def _inputs(self, atm: Atmosphere, ids):
         """The batch's device tensors: the column state, and the cloud
@@ -292,11 +398,11 @@ class RadiationDriver:
         return size, [s * size for s in range(S)]
 
     def _step(self, col, cloud_args, clean: bool, clear: bool,
-              integrated: bool, with_sw: bool, S: int):
-        """Every tier on one batch, summed over its S spectral blocks.
-        ``with_sw=False`` is the longwave-only step of night columns: its
-        shortwave fluxes are zeros (shaped as the SW band's spectra in
-        spectral output)."""
+              integrated: bool, with_sw: bool, S: int, block=None):
+        """Every tier on one batch, summed over its S spectral blocks, or
+        on block ``block`` alone.  ``with_sw=False`` is the longwave-only
+        step of night columns: its shortwave fluxes are zeros (shaped as
+        the SW band's block spectra in spectral output)."""
         dev = self.device
         pad = torch.nn.functional.pad
         size_lw, starts_lw = self._blocks(self.lw_gas, S)
@@ -305,16 +411,20 @@ class RadiationDriver:
         size_sw, starts_sw, sol = None, [None] * S, None
         if with_sw:
             size_sw, starts_sw = self._blocks(self.sw_gas, S)
-            col["albedo"] = pad(col["albedo"],
-                                (0, size_sw * S - col["albedo"].shape[-1]))
+            for k in ("albedo", "albedo_dif"):
+                if k in col:
+                    col[k] = pad(col[k], (0, size_sw * S - col[k].shape[-1]))
             sol = self.solar.incident_flux
             sol = pad(sol, (0, size_sw * S - sol.shape[-1]))
         keys = None
         if not clear:
             keys = prng.split(prng.prng_key(self.cloud_seed, dev),
                               self.num_subcolumns)
+        starts = list(zip(starts_lw, starts_sw))
+        if block is not None:
+            starts = starts[block:block + 1]
         total = None
-        for start_lw, start_sw in zip(starts_lw, starts_sw):
+        for start_lw, start_sw in starts:
             block = self._core(col, cloud_args, keys, clean, clear,
                                integrated, S, start_lw, size_lw, start_sw,
                                size_sw, sol)
@@ -357,6 +467,8 @@ class RadiationDriver:
             swg = self.sw_gas.grid
             w_sw = swg.wavenumbers(dev, start_sw, size_sw)
             albedo = col["albedo"][:, start_sw:start_sw + size_sw]
+            albedo_dif = col.get("albedo_dif", col["albedo"])[
+                :, start_sw:start_sw + size_sw]
             sol_block = sol[start_sw:start_sw + size_sw]
             mu = torch.clamp(col["mu"], min=1e-6)
             tau_sw = self.sw_gas.optical_depth(
@@ -388,16 +500,16 @@ class RadiationDriver:
             elif with_sw:
                 fsu, fsd = shortwave_fluxes(
                     opt_sw.tau, opt_sw.omega, opt_sw.g, mu,
-                    torch.full_like(mu, DIFFUSE_MU), albedo, albedo,
+                    torch.full_like(mu, DIFFUSE_MU), albedo, albedo_dif,
                     col["tsi"], sol_block)
             if with_sw:
                 out["rsu"] = reduce(fsu, swg, start_sw, size_sw)
                 out["rsd"] = reduce(fsd, swg, start_sw, size_sw)
             else:
-                # Night columns: zeros, SW-band spectra in spectral output.
+                # Night columns: zeros, SW-block spectra in spectral output.
                 shape = out["rlu"].shape
                 if self.sw_gas is not None and not integrated:
-                    shape = shape[:-1] + (self.sw_gas.grid.n,)
+                    shape = shape[:-1] + (self._blocks(self.sw_gas, S)[0],)
                 out["rsu"] = torch.zeros(shape, device=dev)
                 out["rsd"] = torch.zeros(shape, device=dev)
             return out

@@ -32,6 +32,7 @@ import ctypes
 import torch
 
 from ..cuda_build import build_library
+from ..utils import debug
 from .bins import NIP, BinRanges, SpectralBins, accumulate_bins
 from .lines import PreparedLines
 
@@ -142,6 +143,7 @@ def accumulate_bins_kernel(prep: PreparedLines, ns, ranges: BinRanges,
     if err != 0:
         raise RuntimeError(f"voigt_bins launch failed: CUDA error {err}")
     accumulate_bins_kernel.launches += 1
+    debug.check_kernel_output("voigt_bins", (tau0, bins_tau0))
     return tau0, bins_tau0
 
 

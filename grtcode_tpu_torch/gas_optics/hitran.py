@@ -1,12 +1,15 @@
 """HITRAN ``.par`` line-database parsing (port of
-grtcode_tpu/gas_optics/hitran.py, pure-Python branch).
+grtcode_tpu/gas_optics/hitran.py).
 
 Fixed-width HITRAN2012/2016 records, the hex-like single-character
 isotopologue code ('0' -> 10, 'A' -> 11, ...) and the parse-time
 renormalization of each intensity by its 296 K Boltzmann /
 stimulated-emission factor and Q(296).  The catalog is a plain
 struct-of-numpy-arrays; device preparation happens in
-:mod:`grtcode_tpu_torch.gas_optics.lines`.
+:mod:`grtcode_tpu_torch.gas_optics.lines`.  The record scan runs in the
+native C++ scanner (:mod:`grtcode_tpu_torch.native`) and in Python only
+when that cannot be built; ``parse_par_file.parses`` counts the parses by
+path.
 """
 from __future__ import annotations
 
@@ -81,6 +84,20 @@ def parse_par_file(path: str, mol_id: int, w0: float = -1.0, wn: float = -1.0,
         from . import tips as tips_mod
         tips = tips_mod.default_tips()
 
+    from .. import native
+    parsed = native.parse_par_native(path, mol_id, w0, wn)
+    if parsed is not None:
+        parse_par_file.parses["native"] += 1
+        iso, vnn, s0, yair, yself, en, nexp, d = parsed
+        snn = renormalize_strengths(s0, vnn, en, iso, mol_id, tips) \
+            * STRENGTH_SCALE
+        return LineCatalog(
+            mol_id=mol_id, iso=iso.astype(np.int32), vnn=vnn, snn=snn,
+            yair=yair.astype(np.float32), yself=yself.astype(np.float32),
+            en=en.astype(np.float32), n=nexp.astype(np.float32),
+            d=d.astype(np.float32))
+
+    parse_par_file.parses["python"] += 1
     mol_prefix = f"{mol_id:2d}"
     rows = []
     with open(path, "r") as fh:
@@ -125,6 +142,9 @@ def parse_par_file(path: str, mol_id: int, w0: float = -1.0, wn: float = -1.0,
         en=en.astype(np.float32), n=nexp.astype(np.float32),
         d=d.astype(np.float32),
     )
+
+
+parse_par_file.parses = {"native": 0, "python": 0}
 
 
 def synthetic_catalog(mol_id: int, vnn, s0, yair, yself, en, n, d, iso=None,

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..cuda_build import build_library
+from ..utils import debug
 from .hitran import STRENGTH_SCALE
 from .lines import PreparedLines
 from .voigt import voigt_far_wing, voigt_line_shape
@@ -324,6 +325,7 @@ def accumulate_voigt(prep: PreparedLines, ns, ranges: ChunkRanges, *,
         raise RuntimeError(f"voigt_line_sample launch failed: CUDA error "
                            f"{err}")
     accumulate_voigt.launches += 1
+    debug.check_kernel_output("voigt_line_sample", tau0)
     return tau0
 
 

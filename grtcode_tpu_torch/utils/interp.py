@@ -64,6 +64,18 @@ def trapezoid_integral(x, y):
     return np.sum(0.5 * (y[..., :-1] + y[..., 1:]) * np.diff(x), axis=-1)
 
 
+def angstrom_exponent_sample(x, y, newx):
+    """Sample aerosol optical depth with an Angstrom exponent
+    (utilities.c:45-74): ``newy = y[0] * (x[0]/newx)**alpha`` where
+    ``alpha = log(y[1]/y[0]) / log(x[0]/x[1])``; tensors in, tensors out,
+    else numpy."""
+    xp = torch if isinstance(newx, torch.Tensor) else np
+    x, y, newx = (torch.as_tensor(a) if xp is torch else np.asarray(a)
+                  for a in (x, y, newx))
+    alpha = xp.log(y[1] / y[0]) / xp.log(x[0] / x[1])
+    return y[0] * (x[0] / newx) ** alpha
+
+
 def trapezoid_uniform(y: torch.Tensor, dw: float):
     """Trapezoid integral over the last axis on a uniform grid with spacing
     ``dw`` (the driver's integrated-flux accumulation)."""

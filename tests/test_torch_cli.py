@@ -4,8 +4,9 @@ the three apps' parsers) and the cloud tables' netCDF readers.
 * ``shared_parser`` and each app's parser give the same Namespace as the
   JAX package's for the same argv: every shared flag, every app flag, and
   the defaults;
-* ``-mesh 2x1`` raises NotImplementedError naming ROADMAP O6 (from
-  ``mesh_from_args`` and from each app), ``-mesh nonsense`` exits;
+* ``-mesh 2x1`` without a process group exits telling the user to
+  launch under torchrun (from ``mesh_from_args`` and from each app),
+  ``-mesh nonsense`` exits;
 * the device: ``-d N`` is ``cuda:N``, ``cuda:0`` without it; an app with
   no CUDA and no ``device`` exits and never runs on the CPU;
 * ``configure`` sets the reference's verbosity level;
@@ -99,18 +100,20 @@ def test_app_parsers_match_jax(app, case, monkeypatch):
     assert len(got) > 20
 
 
-def test_mesh_flag():
+def test_mesh_flag(monkeypatch):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     p = cli.shared_parser("t")
     assert cli.mesh_from_args(p.parse_args(["a", "b"])) is None
-    with pytest.raises(NotImplementedError, match="O6"):
+    with pytest.raises(SystemExit, match="torchrun --nproc-per-node 2"):
         cli.mesh_from_args(p.parse_args(["a", "b", "-mesh", "2x1"]))
     with pytest.raises(SystemExit):
         cli.mesh_from_args(p.parse_args(["a", "b", "-mesh", "nonsense"]))
 
 
 @pytest.mark.parametrize("app", list(APPS))
-def test_apps_refuse_a_mesh(app):
-    with pytest.raises(NotImplementedError, match="O6"):
+def test_apps_refuse_a_mesh(app, monkeypatch):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(SystemExit, match="torchrun --nproc-per-node 8"):
         APPS[app][1].main(APP_ARGV[app][0] + ["-mesh", "4x2"], device="cpu")
 
 

@@ -12,9 +12,10 @@
   line_sample and wavenumber_sweep; ``block_trapezoid_weights`` matches;
 * the CSAF rows of the reference-C golden (tests/data/driver_golden.txt)
   match through the port's own file readers;
-* ``mesh`` raises NotImplementedError, spectral output with spectral
+* ``mesh`` with ``spectral_chunks > 1`` raises, spectral output with spectral
   streaming raises ValueError;
-* importing the port loads no JAX and no h5py.
+* importing the port (the bindings and the parallel modules too) loads no
+  JAX and no h5py, starts no process group and builds no library.
 """
 import dataclasses
 import os
@@ -232,11 +233,14 @@ def tiny():
 
 
 @pytest.mark.parametrize("request_, item", [
-    pytest.param(dict(mesh=object()), "O6", id="request_0-O6"),
+    pytest.param(dict(mesh=object(), spectral_chunks=2), "spectral_chunks",
+                 id="request_0-O6"),
 ])
 def test_requests_off_the_slice_raise(tiny, request_, item):
+    """A mesh with spectral_chunks > 1 raises, as in JAX
+    (grtcode_tpu/framework/driver.py:375-378)."""
     driver, atm = tiny
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=item):
         driver.run(atm, **request_)
 
 
@@ -354,6 +358,14 @@ def test_port_imports_no_jax():
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert 'h5py' not in sys.modules, 'h5py was imported'\n"
         "assert not any(k.split('.')[0] == 'grtcode_tpu' for k in sys.modules)\n"
+        "for m in ('bindings.capi_impl', 'parallel.mesh', 'parallel.clear_sky',\n"
+        "          'parallel.distributed', 'parallel.dryrun', 'native',\n"
+        "          'utils.metrics', 'utils.debug', 'utils.segments'):\n"
+        "    assert 'grtcode_tpu_torch.' + m in sys.modules, m\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized(), 'a process group was started'\n"
+        "from grtcode_tpu_torch import native\n"
+        "assert native._lib is None and not native._tried, 'a library was built'\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

@@ -30,6 +30,7 @@ import bench  # noqa: E402
 
 from grtcode_tpu.clouds import beta as jbeta  # noqa: E402
 from grtcode_tpu.clouds.lib import CloudOpticsLib as JCloudOpticsLib  # noqa: E402
+from grtcode_tpu.clouds.pade import PadeCloudOptics as JPadeCloudOptics  # noqa: E402
 from grtcode_tpu.clouds.pade import synthetic_pade_table as jpade  # noqa: E402
 from grtcode_tpu.framework.driver import RadiationDriver as JDriver  # noqa: E402
 from grtcode_tpu_torch import examples  # noqa: E402
@@ -52,10 +53,15 @@ def _threads():
 
 
 def jax_cloud_optics():
-    """The JAX twin of allsky_like's cloud optics."""
+    """The JAX twin of allsky_like's cloud optics: the synthetic liquid
+    table of seed 0 and the port's physical ice table, its arrays given
+    to JAX's PadeCloudOptics."""
+    ice = examples.ice_pade_table(device="cpu")
     return JCloudOpticsLib(
         liquid=jpade(nbnd=16, w0=1.0, wn=50000.0, seed=0),
-        ice=jpade(nbnd=16, w0=1.0, wn=50000.0, seed=1)).driver_callback()
+        ice=JPadeCloudOptics.from_arrays(*(
+            getattr(ice, f.name).numpy() for f in dataclasses.fields(ice)))
+    ).driver_callback()
 
 
 def exact_betainc(a, b, x):
@@ -129,11 +135,11 @@ def test_allsky_like_builds_its_fields(smoke):
     for f in ("cloud_fraction", "liquid_water_content", "cos_zenith",
               "aerosol_optical_depth_1um"):
         assert np.array_equal(getattr(atm, f), getattr(atm2, f)), f
-    # Its cloud optics: the synthetic Pade tables of seeds 0 and 1 over
-    # 1-50,000 cm-1 in 16 bands.
+    # Its cloud optics: the synthetic Pade liquid table of seed 0 and the
+    # physical ice table, both over 1-50,000 cm-1 in 16 bands.
     lib = CloudOpticsLib(
         liquid=synthetic_pade_table(nbnd=16, w0=1.0, wn=50000.0, seed=0),
-        ice=synthetic_pade_table(nbnd=16, w0=1.0, wn=50000.0, seed=1))
+        ice=examples.ice_pade_table(device="cpu"))
     dev = driver.device
     f32 = torch.float32
     args = {

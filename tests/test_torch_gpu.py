@@ -3,8 +3,11 @@ their plain PyTorch versions, the clear-sky aerosol-free step on CUDA
 tensors (line_sample, and the spectrally streamed bin-method step) and the
 all-sky step against the same steps on CPU tensors, the cloud draws on
 the card against the CPU's, the discrete-ordinates solver and the
-all-sky step with it against the CPU, and the CIRC app on the card
-against the same app on the CPU.
+all-sky step with it against the CPU, the CIRC app on the card against
+the same app on the CPU, a (1 x 1) mesh in an NCCL group against the
+unmeshed step and its all_gather, the native .par scanner, and the C
+ABI's device selection, its default (the current CUDA device) and
+fluxes on the card.
 
 Every test is marked ``gpu`` and skips without a GPU.  The file imports no
 JAX, so it also runs where JAX is not installed; ``tests/conftest.py``
@@ -442,17 +445,14 @@ def test_disort_on_the_card_matches_the_cpu(cuda, nstr):
 
 def test_allsky_disort_step_on_the_card_matches_the_cpu(cuda):
     """examples.allsky_like at smoke size with the 4-stream DISORT in
-    place of the two-stream solver, liquid clouds only: 18 K1 launches, no
-    plain one, every tier within FLUX_TOL of the CPU run.  (Its synthetic
-    ice table, evaluated at cirrus radii beyond its size regimes, gives
-    single-scattering albedos up to 1.47 and asymmetry factors up to 1.76;
-    on such optics DISORT is NaN in both packages, ROADMAP queue 3.)"""
+    place of the two-stream solver, liquid and ice clouds (the cell's
+    physical ice table, examples.ice_pade_table): 18 K1 launches, no
+    plain one, every tier finite and within FLUX_TOL of the CPU run."""
     import dataclasses
 
     def fluxes(device):
         driver, atm = examples.allsky_like(smoke=True, device=device)
-        atm = dataclasses.replace(
-            atm, ice_water_content=np.zeros_like(atm.ice_water_content))
+        assert atm.ice_water_content.any()
         res = dataclasses.replace(driver, sw_solver="disort",
                                   disort_streams=4).run(atm)
         return {t: {k: v.cpu().numpy() for k, v in fx.items()}
@@ -509,3 +509,151 @@ def test_circ_app_on_the_card_matches_the_cpu(cuda, tmp_path, capsys):
         assert g.shape == w.shape == (1, 55) and np.isfinite(g).all()
         scale = np.maximum(np.abs(w), 0.01 * np.abs(w).max())
         assert float((np.abs(g - w) / scale).max()) < FLUX_TOL, var
+
+
+def test_nccl_mesh_of_one_equals_the_unmeshed_step(cuda, tmp_path):
+    """A world of one NCCL rank on cuda:0 and make_mesh(1, 1): the
+    line_sample cell at smoke size, bit-identical to run() without a
+    mesh; the mesh's all_gather of a CUDA tensor along each axis (NCCL,
+    no host copy) returns it bit for bit on cuda:0."""
+    import torch.distributed as dist
+    from grtcode_tpu_torch.framework.driver import _mesh_all_gather
+    from grtcode_tpu_torch.parallel import distributed, make_mesh
+    from grtcode_tpu_torch.parallel.mesh import COLUMNS_AXIS, SPECTRAL_AXIS
+
+    lw, sw, sol, batch, B, nlay = examples.rfmip_like(smoke=True,
+                                                      device=cuda)
+    driver = RadiationDriver(lw, sw, sol)
+    atm = examples.atmosphere(batch)
+    dev = distributed.initialize(f"file://{tmp_path}/store", 1, 0,
+                                 timeout_s=60)
+    try:
+        assert dev.type == "cuda" and dist.get_backend() == "nccl"
+        mesh = make_mesh(1, 1)
+        got = driver.run(atm, mesh=mesh).tiers["csaf"]
+        want = driver.run(atm).tiers["csaf"]
+        for k, v in want.items():
+            assert torch.equal(got[k], v), k
+        for axis in (COLUMNS_AXIS, SPECTRAL_AXIS):
+            (part,) = _mesh_all_gather(mesh, axis, got["rsd"])
+            assert part.device == dev
+            assert part.data_ptr() != got["rsd"].data_ptr()
+            assert torch.equal(part.view(torch.int32),
+                               got["rsd"].view(torch.int32))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_native_scanner_parses_on_the_card_machine(tmp_path):
+    """The .par scanner builds with g++ here and every parse takes it."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), os.pardir))
+    from tools.goldens import driver_inputs
+    from grtcode_tpu_torch import native
+    from grtcode_tpu_torch.gas_optics import hitran
+
+    driver_inputs.write_inputs(str(tmp_path))
+    assert native.available()
+    before = dict(hitran.parse_par_file.parses)
+    cat = hitran.parse_par_file(str(tmp_path / "synthetic.par"), 1)
+    assert cat.num_lines > 0
+    assert hitran.parse_par_file.parses["native"] == before["native"] + 1
+    assert hitran.parse_par_file.parses["python"] == before["python"]
+
+
+def test_c_abi_selects_the_card_and_matches_the_direct_call(cuda):
+    """grt_create_device(0) is cuda:0, and longwave fluxes through the
+    ABI on the card equal the port's direct call bit for bit."""
+    import ctypes
+    from grtcode_tpu_torch import bindings
+    from grtcode_tpu_torch.bindings import capi_impl
+    from grtcode_tpu_torch.solvers.longwave import longwave_fluxes
+
+    lib = bindings.load()
+    assert lib.grt_initialize() == 0
+    dev = ctypes.c_int64()
+    assert lib.grt_create_device(ctypes.c_int(0), ctypes.byref(dev)) == 0
+    assert lib.grt_use_device(dev) == 0
+    assert capi_impl._default_device == torch.device("cuda", 0)
+    nlayers, w0, nw = 6, 500.0, 64
+    grid, opt = ctypes.c_int64(), ctypes.c_int64()
+    assert lib.grt_create_spectral_grid(
+        ctypes.c_double(w0), ctypes.c_double(w0 + nw - 1),
+        ctypes.c_double(1.0), ctypes.byref(grid)) == 0
+    assert lib.grt_create_optics(ctypes.c_int(nlayers), grid,
+                                 ctypes.byref(opt)) == 0
+    rng = np.random.default_rng(3)
+    tau = rng.uniform(0.01, 2.0, (nlayers, nw))
+    capi_impl._get(opt.value)["tau"][:] = tau
+    tlev = np.linspace(220.0, 290.0, nlayers + 1)
+    emis = np.full(nw, 0.97)
+    up = np.zeros((nlayers + 1) * nw)
+    down = np.zeros_like(up)
+
+    def ptr(a):
+        return a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+
+    assert lib.grt_longwave_fluxes(opt, ctypes.c_double(293.0), ptr(tlev),
+                                   None, ptr(emis), ptr(up), ptr(down)) == 0
+
+    def f32(a):
+        return torch.as_tensor(np.array(a, np.float64), dtype=torch.float32,
+                               device=cuda)
+
+    want = longwave_fluxes(
+        f32(tau), f32(np.zeros_like(tau)), f32(np.float32(293.0)),
+        f32(0.5 * (tlev[:-1] + tlev[1:])), f32(tlev), f32(emis),
+        SpectralGrid(w0, w0 + nw - 1, 1.0).wavenumbers(cuda))
+    assert up.tobytes() == want[0].cpu().numpy().astype(
+        np.float64).ravel().tobytes()
+    assert down.tobytes() == want[1].cpu().numpy().astype(
+        np.float64).ravel().tobytes()
+
+
+def test_c_abi_defaults_to_the_card(cuda, monkeypatch):
+    """With no device selected the ABI computes on the current CUDA
+    device: its longwave fluxes equal the port's direct call on cuda:0
+    bit for bit."""
+    import ctypes
+    from grtcode_tpu_torch import bindings
+    from grtcode_tpu_torch.bindings import capi_impl
+    from grtcode_tpu_torch.solvers.longwave import longwave_fluxes
+
+    lib = bindings.load()
+    assert lib.grt_initialize() == 0
+    monkeypatch.setattr(capi_impl, "_default_device", None)
+    assert capi_impl._device() == torch.device("cuda", 0)
+    nlayers, w0, nw = 5, 800.0, 48
+    grid, opt = ctypes.c_int64(), ctypes.c_int64()
+    assert lib.grt_create_spectral_grid(
+        ctypes.c_double(w0), ctypes.c_double(w0 + nw - 1),
+        ctypes.c_double(1.0), ctypes.byref(grid)) == 0
+    assert lib.grt_create_optics(ctypes.c_int(nlayers), grid,
+                                 ctypes.byref(opt)) == 0
+    tau = np.random.default_rng(5).uniform(0.01, 2.0, (nlayers, nw))
+    capi_impl._get(opt.value)["tau"][:] = tau
+    tlev = np.linspace(215.0, 295.0, nlayers + 1)
+    emis = np.full(nw, 0.95)
+    up = np.zeros((nlayers + 1) * nw)
+    down = np.zeros_like(up)
+
+    def ptr(a):
+        return a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+
+    assert lib.grt_longwave_fluxes(opt, ctypes.c_double(297.0), ptr(tlev),
+                                   None, ptr(emis), ptr(up), ptr(down)) == 0
+    assert capi_impl._default_device is None
+
+    def f32(a):
+        return torch.as_tensor(np.array(a, np.float64), dtype=torch.float32,
+                               device=cuda)
+
+    want = longwave_fluxes(
+        f32(tau), f32(np.zeros_like(tau)), f32(np.float32(297.0)),
+        f32(0.5 * (tlev[:-1] + tlev[1:])), f32(tlev), f32(emis),
+        SpectralGrid(w0, w0 + nw - 1, 1.0).wavenumbers(cuda))
+    assert up.tobytes() == want[0].cpu().numpy().astype(
+        np.float64).ravel().tobytes()
+    assert down.tobytes() == want[1].cpu().numpy().astype(
+        np.float64).ravel().tobytes()
