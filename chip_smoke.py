@@ -11,8 +11,9 @@ production LW 0.01 cm-1 streamed through 10 spectral blocks, the
 all-sky step (aerosols, stochastic clouds, half the columns at night) at
 LW 0.1, the CIRC app with both SW solvers, the line_sample step over
 (columns x spectral) meshes of ranks with the all-sky cell's per-node
-segments, and the metrics, debug and C ABI modules, in twelve phases (one
-line each):
+segments, the metrics, debug and C ABI modules, and the library path
+built by hand from the public imports, in thirteen phases (one line
+each):
 
   1. the card: name and power limit as nvidia-smi gives them (on a line
      of their own, then the phase line with the torch / CUDA versions and
@@ -93,7 +94,19 @@ line each):
      kernels, debug_mode on a clean step (no trap) and on one NaN
      temperature (a trap), and the C ABI through ctypes on cuda:0
      (grt_create_device(0)): H2O optical depth from a .par, LW fluxes and
-     Rayleigh + gas SW fluxes, bit-identical to the port's direct calls.
+     Rayleigh + gas SW fluxes, bit-identical to the port's direct calls;
+ 13. the library path: (a) phase 5's model and atmosphere through
+     grtcode_tpu_torch.drive.clear_sky_step, the CSAF step built by hand
+     from the public imports (GasOptics.optical_depth per band, 11 K1
+     launches counted through the dispatcher, Optics.from_tau with its
+     grid, rayleigh_optics, +, longwave_fluxes / shortwave_fluxes,
+     trapezoid_uniform), timed with its peak memory, held against
+     RadiationDriver.run on the same atmosphere within 1e-6 of each
+     level's largest flux (bit-identity is the aim); (b) Optics.sample
+     from the LW 0.1 grid to its 1.0 sub-grid equal to tau[..., ::10] on
+     the card, as views; (c) the verify recipe's five physics invariants
+     on one synthetic column (drive.physics_invariants), each value
+     printed beside its bar.
 
 Prints a kernels JSON line and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero without that line; there is no CPU
@@ -120,6 +133,9 @@ TOL_CHUNK = dict(rtol=2e-6, atol=1e-6)     # tests/test_framework.py:190
 # A column shard against the whole batch: the reductions over the
 # wavenumber axis may split their sums differently at another batch size.
 TOL_MESH_COLUMNS = 1e-6
+# Phase 13: the hand-built step against RadiationDriver.run, of each
+# level's largest flux over the columns.
+TOL_LIBRARY = 1e-6
 MESH_TIMEOUT_S = 300.0   # phase 11's process groups, start to end
 BUILD_DIR = os.path.join("build", "chip_smoke")
 REPLACES = "grtcode_tpu/gas_optics/pallas_kernels.py:247"
@@ -1951,6 +1967,98 @@ def phase_aux(info, dev, card, cell):
     return launches + abi_launches
 
 
+def phase_library(info, dev, card, cell):
+    """The library path on the card: the CSAF step by hand from the public
+    imports against RadiationDriver.run, Optics.sample against striding,
+    the verify recipe's invariants.  Returns K1's launches on the hand
+    step."""
+    import torch
+    from grtcode_tpu_torch import Optics, SpectralGrid, drive
+    from grtcode_tpu_torch.gas_optics import voigt_kernel as vk
+
+    t_phase = time.perf_counter()
+    driver, atm, B, nlayers = cell
+    lw_gas, sw_gas, solar = driver.lw_gas, driver.sw_gas, driver.solar
+    n_mol = len(lw_gas.molecules) + len(sw_gas.molecules)
+
+    # (a) One untimed hand step, then one counted and timed, then the
+    # driver's step on the same atmosphere.
+    drive.clear_sky_step(lw_gas, sw_gas, solar, atm)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    vk.accumulate_voigt.launches = 0
+    vk.voigt_line_sample_reference.launches = 0
+    t0 = time.perf_counter()
+    hand = drive.clear_sky_step(lw_gas, sw_gas, solar, atm)
+    torch.cuda.synchronize()
+    hand_ms = 1e3 * (time.perf_counter() - t0)
+    launches = vk.accumulate_voigt.launches
+    plain = vk.voigt_line_sample_reference.launches
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == n_mol, f"hand step: {launches} K1 launches, expected "
+          f"{n_mol}")
+    check(plain == 0, f"the plain version ran {plain} times on the hand step")
+    t0 = time.perf_counter()
+    run = driver.run(atm).tiers["csaf"]
+    torch.cuda.synchronize()
+    run_ms = 1e3 * (time.perf_counter() - t0)
+    worst, identical = {}, True
+    for var in ("rlu", "rld", "rsu", "rsd"):
+        h, r = hand[var], run[var]
+        check(tuple(h.shape) == tuple(r.shape) == (B, nlayers + 1)
+              and h.device == dev, f"{var}: shape {tuple(h.shape)}")
+        check(bool(torch.isfinite(h).all()), f"{var}: not finite")
+        largest = r.abs().amax(dim=0).clamp_min(1e-30)
+        worst[var] = float(((h - r).abs().amax(dim=0) / largest).max())
+        identical = identical and torch.equal(h, r)
+        check(worst[var] <= TOL_LIBRARY, f"hand step {var}: worst error "
+              f"{worst[var]:.3e} of the level's largest flux")
+
+    # (b) Optics.sample from the 0.1 grid to its 1.0 sub-grid.
+    def vmr(ppmv):
+        return {k: np.asarray(v, np.float64) * 1e-6 for k, v in ppmv.items()}
+
+    gas = Optics.from_tau(lw_gas.optical_depth(
+        atm.level_pressure, atm.level_temperature, vmr(atm.ppmv),
+        cfc_vmr=vmr(atm.cfc_ppmv), cia_vmr=vmr(atm.cia_ppmv)), lw_gas.grid)
+    coarse = SpectralGrid(lw_gas.grid.w0, lw_gas.grid.wn,
+                          10 * lw_gas.grid.dw)
+    sampled = gas.sample(coarse)
+    for name in ("tau", "omega", "g"):
+        t, full = getattr(sampled, name), getattr(gas, name)
+        check(t.device == dev and t.data_ptr() == full.data_ptr()
+              and torch.equal(t, full[..., ::10]),
+              f"sample {name} differs from striding")
+    check(sampled.grid == coarse and sampled.tau.shape[-1] == coarse.n,
+          f"sample: grid {sampled.grid}, {tuple(sampled.tau.shape)}")
+    sample_shape = tuple(sampled.tau.shape)
+    del gas, sampled
+
+    # (c) The verify recipe's invariants.
+    checks = drive.physics_invariants(dev)
+    failed = [c["name"] for c in checks if not c["ok"]]
+    phase_s = time.perf_counter() - t_phase
+    info["phase13"] = dict(
+        card=card, hand_ms=hand_ms, run_ms=run_ms, peak_bytes=peak,
+        launches=launches, worst=worst, bit_identical=identical,
+        sample_shape=sample_shape, sample_dw=[lw_gas.grid.dw, coarse.dw],
+        invariants=checks, phase_s=phase_s)
+    print(f"phase 13 library path ({card}): hand-built CSAF step at B={B} x "
+          f"{nlayers} layers, {launches} K1 launches, {hand_ms:.1f} ms "
+          f"(RadiationDriver.run {run_ms:.1f} ms), peak "
+          f"{peak / 2 ** 30:.2f} GiB; against run(): worst error "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f" of the level's largest flux (bar {TOL_LIBRARY}), "
+          f"{'bit-identical' if identical else 'not bit-identical'}; "
+          f"Optics.sample {lw_gas.grid.dw} -> {coarse.dw} cm-1 "
+          f"{sample_shape} equal to tau[..., ::10] as views; invariants: "
+          + "; ".join(f"{c['name']} {c['value']:.4g} (bar {c['bar']})"
+                      for c in checks)
+          + f"; phase {phase_s:.1f} s", flush=True)
+    check(not failed, f"physics invariants failed: {failed}")
+    return launches
+
+
 def main():
     import torch
 
@@ -1980,6 +2088,7 @@ def main():
     torch.cuda.empty_cache()
     cell, launches11 = phase_mesh(info, dev, info["card"])
     launches12 = phase_aux(info, dev, info["card"], cell)
+    launches13 = phase_library(info, dev, info["card"], cell)
     check("jax" not in sys.modules, "JAX was imported")
     info["seconds"] = time.perf_counter() - t0
 
@@ -1988,15 +2097,15 @@ def main():
         json.dump(info, f, indent=1, default=str)
     # K1 runs on every path (all 11 molecules at 0.1, the 4 SW molecules
     # in each block of the streamed one, 18 per all-sky step, 14 per CIRC
-    # run, 11 per rank on a mesh, the segments' and phase 12's steps); its
-    # launches are the six counts.
+    # run, 11 per rank on a mesh, the segments', phase 12's and phase 13's
+    # steps); its launches are the seven counts.
     # No PyTorch call computes a Voigt sum over a line list: library_ms is
     # null for both.
     print(json.dumps({"kernels": [
         {"name": "voigt_line_sample", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES,
          "launches": k1_launches + launches8["voigt_line_sample"]
-         + launches9 + launches10 + launches11 + launches12,
+         + launches9 + launches10 + launches11 + launches12 + launches13,
          "max_abs_err": max(err3, err5, err10), "ms": o2["ms"],
          "plain_ms": o2["plain_ms_mean"], "bound_ms": o2["bound_ms"],
          "bound_by": o2["bound_by"], "library_ms": None},

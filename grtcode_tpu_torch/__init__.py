@@ -16,3 +16,4 @@ is carried here as a copy.
 __version__ = "0.1.0"
 
 from .spectral import SpectralGrid  # noqa: F401,E402
+from .optics import Optics, combine  # noqa: F401,E402

@@ -1,9 +1,9 @@
 """CIRC benchmark application (port of grtcode_tpu/apps/circ.py;
 circ/src/circ.c, basic-circ-test.c).
 
-Case 1 is embedded (the JAX package's ``grtcode_tpu/data/circ1.npz``, the
-public NASA CIRC data of circ/src/circ1.h, read by path); other cases load
-from the CIRC netCDF inputs.  Reference integrated-flux values for case 1
+Case 1 is embedded (the package's ``data/circ1.npz``, a copy of the JAX
+package's: the public NASA CIRC data of circ/src/circ1.h); other cases
+load from the CIRC netCDF inputs.  Reference integrated-flux values for case 1
 (LBLRTM and the CIRC multi-model mean) are pinned from
 basic-circ-test.c:444-501.
 
@@ -27,9 +27,8 @@ from ..gas_optics.molecules import CfcId, CiaId, MoleculeId
 from ..solvers.solar_flux import SolarFlux
 from ..spectral import SpectralGrid
 
-DATA = os.path.normpath(os.path.join(
-    os.path.dirname(__file__), os.pardir, os.pardir, "grtcode_tpu", "data",
-    "circ1.npz"))
+DATA = os.path.join(os.path.dirname(__file__), os.pardir, "data",
+                    "circ1.npz")
 
 # basic-circ-test.c:444-501 (W m-2).
 CASE1_REFERENCE = {

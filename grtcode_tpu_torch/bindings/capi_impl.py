@@ -333,20 +333,14 @@ def calculate_optical_depth(handle: int, p_mb, t, optics_handle: int) -> int:
 # -- rayleigh (shortwave/src/rayleigh.c:100-144) -----------------------------
 
 def rayleigh_scattering(optics_handle: int, p_mb) -> int:
-    """rayleigh_optics: level pressures [mb] -> layer column densities ->
-    Rayleigh tau, omega = 1, g = 0."""
-    from .. import constants
-    from ..solvers.rayleigh import rayleigh_tau
-    from ..utils.curtis_godson import number_densities
+    from ..solvers.rayleigh import rayleigh_optics
 
-    dev = _device()
     o = _get(optics_handle)
     nlev = o["nlayers"] + 1
-    p_atm = _f32(_f64(p_mb, nlev), dev) * constants.MB_TO_ATM
-    tau = rayleigh_tau(number_densities(p_atm), o["grid"].wavenumbers(dev))
-    o["tau"] = _host(tau)
-    o["omega"] = np.ones_like(o["tau"])
-    o["g"] = np.zeros_like(o["tau"])
+    opt = rayleigh_optics(_f64(p_mb, nlev), o["grid"], device=_device())
+    o["tau"] = _host(opt.tau)
+    o["omega"] = _host(opt.omega)
+    o["g"] = _host(opt.g)
     return GRTCODE_SUCCESS
 
 

@@ -13,6 +13,7 @@ import dataclasses
 import torch
 
 from ..optics import Optics
+from ..spectral import SpectralGrid
 from ..utils import prng
 from .pade import PadeCloudOptics
 from .stochastic import overlap_parameter, sample_condensate
@@ -68,6 +69,31 @@ class CloudOpticsLib:
     liquid: PadeCloudOptics
     ice: PadeCloudOptics
     liquid_radius: float = 10.0   # [microns]
+
+    def column_optics(self, key, cloud_fraction, lwc, iwc, t_lay,
+                      layer_pressure_mb, layer_thickness,
+                      grids: tuple[SpectralGrid, ...]):
+        """One subcolumn's liquid/ice optics on each requested grid.
+
+        ``key`` is a (2,) :mod:`..utils.prng` key; per-layer args
+        (nlayers,), moved to the key's device; returns a list of
+        (liquid_optics, ice_optics) tuples, one per grid, with tau =
+        extinction * thickness.  Thin wrapper over :meth:`column_optics_w`
+        on each grid's wavenumbers, tagging each Optics with its grid.
+        """
+        dev = key.device
+
+        def f32(a):
+            return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+        out = self.column_optics_w(
+            key, f32(cloud_fraction), f32(lwc), f32(iwc), f32(t_lay),
+            f32(layer_pressure_mb), f32(layer_thickness),
+            [grid.wavenumbers(dev) for grid in grids])
+        for grid, (liq, ice) in zip(grids, out):
+            liq.grid = grid
+            ice.grid = grid
+        return out
 
     def column_optics_w(self, keys, cloud_fraction, lwc, iwc, t_lay,
                         layer_pressure_mb, layer_thickness, ws):

@@ -1,8 +1,8 @@
 """Build the port's state from the JAX package's objects.
 
-Each converter reads the JAX object's fields with ``np.asarray`` (grid-bound
-line arrays, padded and unpadded, near-core widths, per-tile line ranges,
-the bin-method settings, continuum and
+Each converter reads the JAX object's fields with ``np.asarray`` (optics
+with their grid, grid-bound line arrays, padded and unpadded, near-core
+widths, per-tile line ranges, the bin-method settings, continuum and
 cross-section tables, the solar spectrum, the cloud-optics tables, the
 atmosphere with its aerosols and clouds, the driver's settings) and builds
 the port's counterpart, so both packages compute the same thing from the
@@ -26,6 +26,7 @@ from .gas_optics.gas_optics import GasOptics
 from .gas_optics.tips import PowerLawTips, TabulatedTips
 from .gas_optics.voigt_kernel import ChunkRanges
 from .gas_optics.xsec import CrossSectionTable
+from .optics import Optics
 from .solvers.solar_flux import SolarFlux
 from .spectral import SpectralGrid
 
@@ -41,6 +42,15 @@ def _f32(a, device):
 
 def _grid(grid) -> SpectralGrid:
     return SpectralGrid(float(grid.w0), float(grid.wn), float(grid.dw))
+
+
+def optics_from_jax(optics, device) -> Optics:
+    """The port's Optics from a JAX ``Optics`` (dtypes kept), its grid
+    carried across."""
+    return Optics(*(torch.as_tensor(np.array(getattr(optics, f)),
+                                    device=device)
+                    for f in ("tau", "omega", "g")),
+                  grid=None if optics.grid is None else _grid(optics.grid))
 
 
 def _tips(tips):

@@ -79,8 +79,7 @@ class WaterVaporContinuum:
 
 @dataclasses.dataclass
 class OzoneContinuum:
-    """Ozone continuum cross-sections on the spectral grid (the optical
-    depth add, N_O3 * sigma(w), is in GasOptics.optical_depth)."""
+    """Ozone continuum cross-sections on the spectral grid."""
 
     cross_section: torch.Tensor  # (n_w,) [cm2]
 
@@ -90,3 +89,10 @@ class OzoneContinuum:
         y = interpolate_to_grid_np(grid, data[:, 0], data[:, 1])
         return cls(cross_section=torch.as_tensor(y, dtype=torch.float32,
                                                  device=device))
+
+    def optical_depth(self, ns):
+        """tau += N_O3 * sigma(w) (kernels.c:495-510): (rows,) O3 column
+        densities -> (rows, n_w) on the table's device."""
+        ns = torch.as_tensor(ns, dtype=torch.float32,
+                             device=self.cross_section.device)
+        return ns[:, None] * self.cross_section[None, :]

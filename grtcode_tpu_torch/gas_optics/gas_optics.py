@@ -29,7 +29,8 @@ from .continua import OzoneContinuum, WaterVaporContinuum
 from .hitran import LineCatalog, parse_par_file
 from .molecules import MoleculeId
 from .voigt_kernel import accumulate_voigt, build_chunk_ranges
-from .xsec import CrossSectionTable
+from .xsec import (CrossSectionTable, cfc_optical_depth,
+                   cia_optical_depth)
 
 _SAMPLING_METHODS = ("tiled", "line_sample")
 _BIN_METHODS = ("wavenumber_sweep", "line_sweep")
@@ -286,19 +287,15 @@ class GasOptics:
                     spectral(self.o3_ctm.cross_section)[None, :]
 
         for cfc_id, table in self.cfcs.items():
-            x = lev(cfc_vmr[cfc_id])
-            xavg = 0.5 * (x[:, :-1] + x[:, 1:])
-            tau += (n2d * xavg).reshape(rows)[:, None] * \
-                spectral(table.cross_section)[None, :]
+            tau += cfc_optical_depth(
+                table, n2d, lev(cfc_vmr[cfc_id]),
+                xs=spectral(table.cross_section)).reshape(rows, nw)
 
         for s1, s2, table in self.cias:
-            x1 = lev(cia_vmr[s1])
-            x2 = lev(cia_vmr[s2])
             # Column factor pre-folded into the table (see add_cia).
-            n_sq = ((p2[:, :-1] ** 2 - p2[:, 1:] ** 2) / tavg2) * 0.25 * \
-                (x1[:, :-1] + x1[:, 1:]) * (x2[:, :-1] + x2[:, 1:])
-            tau += n_sq.abs().reshape(rows)[:, None] * \
-                spectral(table.cross_section)[None, :]
+            tau += cia_optical_depth(
+                table, p2, tavg2, lev(cia_vmr[s1]), lev(cia_vmr[s2]),
+                xs=spectral(table.cross_section)).reshape(rows, nw)
 
         if bin_method:
             # The coarse wings interpolate onto the fine grid after ALL

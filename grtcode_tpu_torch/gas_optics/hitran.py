@@ -54,6 +54,14 @@ class LineCatalog:
     def num_lines(self) -> int:
         return int(self.vnn.shape[0])
 
+    def window(self, w0: float, wn: float) -> "LineCatalog":
+        """Lines with centers inside [w0, wn] (the parse filter)."""
+        m = (self.vnn >= w0) & (self.vnn <= wn)
+        return LineCatalog(
+            self.mol_id, self.iso[m], self.vnn[m], self.snn[m], self.yair[m],
+            self.yself[m], self.en[m], self.n[m], self.d[m],
+        )
+
 
 def renormalize_strengths(s0, vnn, en, iso, mol_id, tips) -> np.ndarray:
     """Pre-divide raw intensities by their 296 K factor:

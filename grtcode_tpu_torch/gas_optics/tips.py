@@ -6,8 +6,8 @@ grtcode_tpu/gas_optics/tips.py).
 ``Q(T) = Q(296) * (T/296)**beta``.  Both live on the host;
 :func:`q_inverse_layers` evaluates 1/Q(T) per layer on the device.
 
-The default table is the JAX package's ``grtcode_tpu/data/tips2017.npz``,
-read by file path (reading the file imports nothing of that package).
+The default table is the package's ``data/tips2017.npz``, a copy of the
+JAX package's.
 """
 from __future__ import annotations
 
@@ -53,7 +53,14 @@ class PowerLawTips:
         q296 = self._q296.get((int(mol_id), int(iso)), 1.0)
         return q296 * (np.asarray(t) / constants.TREF) ** self.beta(mol_id)
 
+    def q_ratio(self, mol_id: int, t, iso: int = 1):
+        """Q(296)/Q(T), the factor that enters line strengths."""
+        return (constants.TREF / np.asarray(t)) ** self.beta(mol_id)
+
     def q296(self, mol_id: int, iso: int = 1) -> float:
+        """Absolute Q(296 K) normalization used at parse time; the same
+        instance must be passed to parse_par_file and prepare so it cancels
+        against :func:`q_inverse_layers`."""
         return self._q296.get((int(mol_id), int(iso)), 1.0)
 
 
@@ -105,17 +112,28 @@ class TabulatedTips:
         table = self._tables[key]
         return np.interp(np.asarray(t, dtype=np.float64), self._tgrid, table)
 
+    def q_ratio(self, mol_id: int, t, iso: int = 1):
+        return self.q(mol_id, constants.TREF, iso) / self.q(mol_id, t, iso)
 
-# The JAX package's packaged table, read by path.
-_PACKAGED_TABLE = os.path.normpath(os.path.join(
-    os.path.dirname(__file__), os.pardir, os.pardir, "grtcode_tpu", "data",
-    "tips2017.npz"))
+    def q296(self, mol_id: int, iso: int = 1) -> float:
+        """Q(296 K) from the table (the principal isotopologue's for a
+        missing one), or the fallback's for a molecule the table lacks."""
+        if not self.has_molecule(mol_id):
+            return self.fallback.q296(mol_id, iso)
+        key = (int(mol_id), int(iso)) if self.has(mol_id, iso) \
+            else (int(mol_id), 1)
+        return float(np.interp(constants.TREF, self._tgrid,
+                               self._tables[key]))
+
+
+_PACKAGED_TABLE = os.path.join(os.path.dirname(__file__), os.pardir,
+                               "data", "tips2017.npz")
 _default_cache = None
 
 
 def default_tips():
     """The default partition-function provider, in preference order:
-    $GRTCODE_TPU_TIPS table file > ``grtcode_tpu/data/tips2017.npz`` >
+    $GRTCODE_TPU_TIPS table file > the packaged ``data/tips2017.npz`` >
     the power-law fallback."""
     global _default_cache
     path = os.environ.get(DEFAULT_TABLE_ENV)

@@ -43,18 +43,37 @@ class SpectralGrid:
         """Largest wavenumber actually on the grid."""
         return self.w0 + (self.n - 1) * self.dw
 
-    def wavenumbers(self, device, start: int = 0,
-                    size: int | None = None) -> torch.Tensor:
+    def wavenumbers(self, device, start: int = 0, size: int | None = None,
+                    dtype=torch.float32) -> torch.Tensor:
         """Grid points ``[start, start + size)`` (all of them by default;
-        a spectral block may run past the grid end) as an f32 tensor, with
-        the driver's f32 expression ``f32(w0) + f32(dw) * f32(index)``."""
+        a spectral block may run past the grid end) as a ``dtype`` tensor
+        (f32 by default), with the driver's expression
+        ``w0 + dw * index`` evaluated in ``dtype``."""
         size = self.n - start if size is None else size
         idx = torch.arange(start, start + size, dtype=torch.int32,
-                           device=device).to(torch.float32)
-        w0 = torch.tensor(self.w0, dtype=torch.float32, device=device)
-        dw = torch.tensor(self.dw, dtype=torch.float32, device=device)
+                           device=device).to(dtype)
+        w0 = torch.tensor(self.w0, dtype=dtype, device=device)
+        dw = torch.tensor(self.dw, dtype=dtype, device=device)
         return w0 + dw * idx
 
     def wavenumbers_np(self, dtype=np.float64) -> np.ndarray:
         """All grid points as a host numpy array (float64 by default)."""
         return self.w0 + self.dw * np.arange(self.n, dtype=dtype)
+
+    def point_index(self, w: float) -> int:
+        """Index of a wavenumber that must lie on the grid (tolerance
+        dw*1e-5)."""
+        if not (self.w0 <= w <= self.wn):
+            raise ValueError(f"wavenumber {w} outside grid [{self.w0}, {self.wn}]")
+        index = int(round((w - self.w0) / self.dw))
+        if abs(self.w0 + index * self.dw - w) > self.dw * 1e-5:
+            raise ValueError(f"wavenumber {w} not located on grid")
+        return index
+
+    def __eq__(self, other) -> bool:
+        if not isinstance(other, SpectralGrid):
+            return NotImplemented
+        return self.w0 == other.w0 and self.wn == other.wn and self.dw == other.dw
+
+    def __hash__(self) -> int:
+        return hash((self.w0, self.wn, self.dw))

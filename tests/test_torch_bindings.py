@@ -265,19 +265,38 @@ def test_fluxes_through_the_abi_match_jax(lib, inputs):
     assert up.max() > 0 and down.max() > 0
 
 
+def _jax_shim() -> str:
+    """The JAX package's shim, ``native/grtcode_tpu_c.cpp`` unmodified,
+    built with native/Makefile's flags into ``build/grtcode_tpu_torch/``
+    (a temporary file renamed into place): nothing is written into
+    ``native/``, where tests/test_bindings.py builds its own copy."""
+    import shutil
+    import subprocess
+
+    from grtcode_tpu_torch.cuda_build import build_shared
+
+    cxx, config = shutil.which("g++"), shutil.which("python3-config")
+    if cxx is None or config is None:
+        pytest.skip("the JAX package's shim needs g++ and python3-config")
+
+    def flags(*args):
+        return subprocess.run([config, *args], check=True,
+                              capture_output=True, text=True).stdout.split()
+
+    path, _ = build_shared(
+        "jax_grtcode_tpu_c",
+        [cxx, "-O2", "-Wall", "-Wextra", "-fPIC", "-std=c++17", "-shared",
+         *flags("--includes")],
+        bindings.SOURCE, headers=[bindings.HEADER],
+        link=flags("--ldflags", "--embed"))
+    return path
+
+
 def test_port_shim_beside_the_jax_shim(lib):
     """The JAX package's shim loaded RTLD_GLOBAL first (as
     tests/test_bindings.py does) takes no port call: the port's shim
     binds its own symbols, so its grids land in the port's registry."""
-    import subprocess
-
-    so = NATIVE / "libgrtcode_tpu_c.so"
-    if not so.exists():
-        if subprocess.run(["make", "-C", str(NATIVE)],
-                          capture_output=True).returncode != 0 \
-                or not so.exists():
-            pytest.skip("the JAX package's shim is not buildable here")
-    ctypes.CDLL(str(so), mode=ctypes.RTLD_GLOBAL)
+    ctypes.CDLL(_jax_shim(), mode=ctypes.RTLD_GLOBAL)
     before = set(capi_impl._registry)
     h = _handle(lib, "grt_create_spectral_grid", ctypes.c_double(1.0),
                 ctypes.c_double(9.0), ctypes.c_double(2.0))

@@ -17,8 +17,10 @@
 * importing the port (the bindings and the parallel modules too) loads no
   JAX and no h5py, starts no process group and builds no library.
 """
+import ast
 import dataclasses
 import os
+import pathlib
 import subprocess
 import sys
 
@@ -346,6 +348,47 @@ def test_night_batch_has_no_shortwave(tiny):
     res = driver.run(night).tiers["csaf"]
     assert not res["rsu"].any() and not res["rsd"].any()
     assert float(res["rlu"][0, 0]) > 0
+
+
+def _code_strings(path):
+    """Every string constant of a module that is not a docstring."""
+    tree = ast.parse(path.read_text())
+    docs = {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                 ast.AsyncFunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)}
+    return [node.value for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and id(node) not in docs]
+
+
+def test_port_names_no_path_of_the_jax_package():
+    """No module of the port builds a path under grtcode_tpu/: its data
+    files are its own (grtcode_tpu_torch/data/)."""
+    port = pathlib.Path(REPO) / "grtcode_tpu_torch"
+    bad = []
+    for path in sorted(port.rglob("*.py")):
+        for s in _code_strings(path):
+            parts = s.replace(os.sep, "/").split("/")
+            if "grtcode_tpu" in parts:
+                bad.append(f"{path.relative_to(REPO)}: {s!r}")
+    assert bad == []
+    from grtcode_tpu_torch.apps import circ
+    from grtcode_tpu_torch.gas_optics import tips
+    for path in (circ.DATA, tips._PACKAGED_TABLE):
+        assert os.path.commonpath([os.path.realpath(path), str(port)]) == \
+            str(port), path
+    assert isinstance(tips.default_tips(), tips.TabulatedTips)
+
+
+@pytest.mark.parametrize("name", ["tips2017.npz", "circ1.npz"])
+def test_port_data_is_a_copy_of_the_jax_data(name):
+    with open(os.path.join(REPO, "grtcode_tpu", "data", name), "rb") as f:
+        want = f.read()
+    with open(os.path.join(REPO, "grtcode_tpu_torch", "data", name),
+              "rb") as f:
+        assert f.read() == want
 
 
 def test_port_imports_no_jax():

@@ -5,9 +5,12 @@ all-sky step against the same steps on CPU tensors, the cloud draws on
 the card against the CPU's, the discrete-ordinates solver and the
 all-sky step with it against the CPU, the CIRC app on the card against
 the same app on the CPU, a (1 x 1) mesh in an NCCL group against the
-unmeshed step and its all_gather, the native .par scanner, and the C
+unmeshed step and its all_gather, the native .par scanner, the C
 ABI's device selection, its default (the current CUDA device) and
-fluxes on the card.
+fluxes on the card, and the library surface on the card: Optics.sample
+(views of the card's tensors, equal to striding) and rayleigh_optics
+against the CPU, and the library path's hand-built step equal to the
+driver's.
 
 Every test is marked ``gpu`` and skips without a GPU.  The file imports no
 JAX, so it also runs where JAX is not installed; ``tests/conftest.py``
@@ -657,3 +660,50 @@ def test_c_abi_defaults_to_the_card(cuda, monkeypatch):
         np.float64).ravel().tobytes()
     assert down.tobytes() == want[1].cpu().numpy().astype(
         np.float64).ravel().tobytes()
+
+
+def test_optics_sample_on_the_card(cuda):
+    """Optics.sample from a 0.1 to a 1.0 sub-grid picks every tenth point
+    on the card, as views, equal to the CPU's."""
+    from grtcode_tpu_torch import Optics
+
+    src, dst = SpectralGrid(1.0, 3250.0, 0.1), SpectralGrid(1.0, 3250.0, 1.0)
+    gen = torch.Generator().manual_seed(0)
+    cpu = Optics(*(torch.rand((3, 5, src.n), generator=gen)
+                   for _ in range(3)), grid=src)
+    card = Optics(cpu.tau.to(cuda), cpu.omega.to(cuda), cpu.g.to(cuda),
+                  grid=src)
+    got, want = card.sample(dst), cpu.sample(dst)
+    assert got.grid == dst and got.tau.device.type == "cuda"
+    for name in ("tau", "omega", "g"):
+        t = getattr(got, name)
+        assert t.data_ptr() == getattr(card, name).data_ptr()
+        assert torch.equal(t, getattr(card, name)[..., ::10])
+        assert torch.equal(t.cpu(), getattr(want, name))
+
+
+def test_rayleigh_optics_on_the_card_matches_the_cpu(cuda):
+    from grtcode_tpu_torch.solvers import rayleigh_optics
+
+    grid = SpectralGrid(1.0, 50000.0, 1.0)
+    p = np.sort(np.random.default_rng(3).uniform(0.01, 1013.0, (4, 55)),
+                axis=1)
+    got = rayleigh_optics(p, grid, device=cuda)
+    want = rayleigh_optics(p, grid, device="cpu")
+    assert got.grid == grid and got.tau.device.type == "cuda"
+    tau = want.tau.numpy()
+    np.testing.assert_allclose(got.tau.cpu().numpy(), tau, rtol=1e-6,
+                               atol=1e-12 * tau.max())
+    assert torch.equal(got.omega.cpu(), want.omega)
+    assert torch.equal(got.g.cpu(), want.g)
+
+
+def test_library_step_on_the_card_is_the_driver_step(cuda):
+    from grtcode_tpu_torch import drive
+
+    lw, sw, sol, batch, _, _ = examples.rfmip_like(smoke=True, device=cuda)
+    atm = examples.atmosphere(batch)
+    hand = drive.clear_sky_step(lw, sw, sol, atm)
+    run = RadiationDriver(lw, sw, sol).run(atm).tiers["csaf"]
+    for var in ("rlu", "rld", "rsu", "rsd"):
+        assert torch.equal(hand[var], run[var]), var
