@@ -11,9 +11,10 @@ production LW 0.01 cm-1 streamed through 10 spectral blocks, the
 all-sky step (aerosols, stochastic clouds, half the columns at night) at
 LW 0.1, the CIRC app with both SW solvers, the line_sample step over
 (columns x spectral) meshes of ranks with the all-sky cell's per-node
-segments, the metrics, debug and C ABI modules, and the library path
-built by hand from the public imports, in thirteen phases (one line
-each):
+segments, the metrics, debug and C ABI modules, the library path
+built by hand from the public imports, and the RFMIP-IRF and cloudy ERA5
+apps with their netCDF files read and written by the port's own HDF5 IO,
+in fourteen phases (one line each):
 
   1. the card: name and power limit as nvidia-smi gives them (on a line
      of their own, then the phase line with the torch / CUDA versions and
@@ -106,7 +107,24 @@ each):
      from the LW 0.1 grid to its 1.0 sub-grid equal to tau[..., ::10] on
      the card, as views; (c) the verify recipe's five physics invariants
      on one synthetic column (drive.physics_invariants), each value
-     printed beside its bar.
+     printed beside its bar;
+ 14. the apps with file IO (grtcode_tpu_torch/utils/hdf5.py, no h5py):
+     (a) the h5py-written fixtures of tests/data/torch_ncio/ read bit for
+     bit equal to their .npz values; (b) an RFMIP-IRF input at the real
+     file's size (100 sites x 18 experiments x 61 levels,
+     examples.write_rfmip_input) written by the port, apps.rfmip.main on
+     phase 10's .par and tables at the default grids, experiment 0 over
+     all sites (6,000 rows), -integrated -o: wall time with the parses
+     apart, the step, the peak; 21 K1 launches (7 LW + 7 SW for the lit
+     sites, 7 LW for the 20 night sites) and no plain launch; the file read
+     back equal to the run's fluxes bit for bit; K1 against its plain
+     version on LW O2 at the 6,000 rows (rtol 2e-6, atol 1e-12); (c) the
+     cloudy ERA5 app (-sw, -liquid-path / -ice-path tables written by the
+     port) on a 1 x 8 x 16-column, 37-level snapshot
+     (examples.write_era5_inputs, half the columns at night): the file
+     read back, written fluxes finite, variables only defined at the fill
+     value with no storage; (d) the phase's wall time on a line of its
+     own.
 
 Prints a kernels JSON line and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero without that line; there is no CPU
@@ -1272,13 +1290,14 @@ def disort_analytic_cases(dev):
     return share
 
 
-def phase_circ_app(info, dev, card):
+def phase_circ_app(info, dev, card, d):
     """The CIRC app on the card: the HITRAN-scale .par, the app's default
     grids, two-stream through ``apps.circ.main``, then the same driver with
     the 16-stream DISORT, then DISORT's analytic cases and the card against
-    the CPU.  Returns K1's launches on the app's run and the four DISORT
-    steps (one count from 0), and K1's largest error against the plain
-    version on the app's driver."""
+    the CPU.  The .par and the input tables are written into directory
+    ``d`` (phase 14 reads them again).  Returns K1's launches on the app's
+    run and the four DISORT steps (one count from 0), and K1's largest
+    error against the plain version on the app's driver."""
     import dataclasses
     import torch
     from tools.goldens import driver_inputs
@@ -1288,8 +1307,6 @@ def phase_circ_app(info, dev, card):
     from grtcode_tpu_torch.solvers.disort import disort_shortwave
     from grtcode_tpu_torch.spectral import SpectralGrid
 
-    tmp = tempfile.TemporaryDirectory()
-    d = tmp.name
     t0 = time.perf_counter()
     driver_inputs.write_inputs(d)
     par = os.path.join(d, "hitran.par")
@@ -1472,7 +1489,6 @@ def phase_circ_app(info, dev, card):
     block_ms = cuda_ms(lambda: disort_shortwave(*batched), 1)
     block_peak = torch.cuda.max_memory_allocated() - base
     del batched
-    tmp.cleanup()
 
     info["phase10"] = dict(
         card=card, records=n_records, lines=lines, write_s=write_s,
@@ -2059,6 +2075,275 @@ def phase_library(info, dev, card, cell):
     return launches
 
 
+def _timed_build(build, steps):
+    """``build`` (an app's ``build_driver``) whose drivers time each
+    ``run`` to a synchronize and keep its result in ``steps``."""
+    import torch
+
+    def wrapper(*a, **k):
+        driver = build(*a, **k)
+        run = driver.run
+
+        def timed_run(*ra, **rk):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = run(*ra, **rk)
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t, driver, out))
+            return out
+
+        driver.run = timed_run
+        return driver
+
+    return wrapper
+
+
+def _run_app(main, argv, dev, patch):
+    """``main(argv, device=dev)`` with K1's counts and the device's peak
+    from 0, the .par parses timed apart and ``patch`` (module, name,
+    wrapper) applied: (wall s, parse s, parses, K1 launches, plain
+    launches, peak bytes)."""
+    import torch
+    from grtcode_tpu_torch.gas_optics import gas_optics as go
+    from grtcode_tpu_torch.gas_optics import voigt_kernel as vk
+
+    parse, parse_s = go.parse_par_file, []
+
+    def timed_parse(*a, **k):
+        t = time.perf_counter()
+        out = parse(*a, **k)
+        parse_s.append(time.perf_counter() - t)
+        return out
+
+    module, name, wrapper = patch
+    real = getattr(module, name)
+    go.parse_par_file = timed_parse
+    setattr(module, name, wrapper(real))
+    vk.accumulate_voigt.launches = 0
+    vk.voigt_line_sample_reference.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        main(argv, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        go.parse_par_file = parse
+        setattr(module, name, real)
+    return (wall, sum(parse_s), len(parse_s), vk.accumulate_voigt.launches,
+            vk.voigt_line_sample_reference.launches,
+            torch.cuda.max_memory_allocated())
+
+
+def phase_apps_io(info, dev, card, d):
+    """Phase 14: the apps with file IO on the card, through the port's
+    own netCDF-4 reader and writer (no h5py).  (a) The h5py-written
+    fixtures of tests/data/torch_ncio/ against their .npz values; (b)
+    RFMIP-IRF at full width on phase 10's .par and tables in ``d``: an
+    input of 100 sites x 18 experiments x 61 levels written by the port,
+    experiment 0 over all sites at the default grids, -integrated -o; the
+    file read back equal to the run's fluxes; 14 K1 launches, none plain;
+    K1 against the plain version on one LW launch at these 6,000 rows;
+    (c) the cloudy ERA5 app (-sw, Pade tables written by the port) over
+    1 x 8 x 16 columns of 37 levels, its file read back: written fluxes
+    finite, variables only defined at the fill value with no storage.
+    Returns K1's launches on both apps and its error against the plain
+    version."""
+    from grtcode_tpu_torch import examples
+    from grtcode_tpu_torch.apps import circ, era5, rfmip
+    from grtcode_tpu_torch.clouds.pade import synthetic_pade_table
+    from grtcode_tpu_torch.gas_optics.molecules import MoleculeId
+    from grtcode_tpu_torch.utils import hdf5, ncio
+
+    t_phase = time.perf_counter()
+
+    # (a) The fixtures, bit for bit.
+    data = os.path.join("tests", "data", "torch_ncio")
+    expected = np.load(os.path.join(data, "expected.npz"))
+    for key in expected.files:
+        fname, _, name = key.partition("/")
+        with hdf5.File(os.path.join(data, fname)) as f:
+            got = np.asarray(f[name].read())
+        want = expected[key]
+        check(got.dtype == want.dtype and got.shape == want.shape
+              and got.tobytes() == want.tobytes(),
+              f"fixture {key}: read {got.dtype} {got.shape} unlike "
+              f"{want.dtype} {want.shape} or not bit for bit")
+    fixtures = len(expected.files)
+
+    def path(name):
+        return os.path.join(d, name)
+
+    tables = ["-h2o-ctm", path("h2o_ctm"), "-o3-ctm", path("o3_ctm.csv")]
+
+    # (b) RFMIP-IRF: experiment 0, all 100 sites, default grids.
+    t0 = time.perf_counter()
+    examples.write_rfmip_input(path("rfmip.nc"))
+    rfmip_write_s = time.perf_counter() - t0
+    out = path("rfmip_fluxes.nc")
+    argv = [path("hitran.par"), path("solar.csv"), path("rfmip.nc"), "0"] \
+        + tables + ["-CFC-11", path("cfc11.csv"), "-CFC-12",
+                    path("cfc12.csv"), "-N2-N2", path("cia_n2n2.csv"),
+                    "-O2-N2", path("cia_o2n2.csv"), "-integrated", "-o", out]
+    atms, steps = [], []
+    load = rfmip.load_atmosphere
+
+    def keep_atm(*a, **k):
+        atms.append(load(*a, **k))
+        return atms[-1]
+
+    rfmip.load_atmosphere = keep_atm
+    try:
+        wall, parse_s, parses, launches, plain, peak = _run_app(
+            rfmip.main, argv, dev,
+            (circ, "build_driver", lambda b: _timed_build(b, steps)))
+    finally:
+        rfmip.load_atmosphere = load
+    check(plain == 0, "the plain version ran in the RFMIP-IRF app")
+    (step_s, driver, res), = steps
+    atm = atms[0]
+    rows = atm.batch * atm.num_layers
+    check(rows == 6000, f"{rows} rows, expected 100 sites x 60 layers")
+    # Day compaction: the lit sites' LW and SW, the night sites' LW alone
+    # (the recipe's zenith angles put every fifth site at 95 degrees).
+    night_sites = int((np.asarray(atm.cos_zenith) <= 0).sum())
+    mols = (len(driver.lw_gas.molecules), len(driver.sw_gas.molecules))
+    want = mols[0] + mols[1] + (mols[0] if night_sites else 0)
+    check(mols == (7, 7) and launches == want,
+          f"{launches} K1 launches in the RFMIP-IRF app, expected {want} "
+          f"({mols} molecules, {night_sites} sites at night)")
+    tiers = res.host()["csaf"]
+    with ncio.Dataset(out) as nc:
+        checked = 0
+        for name, key in (("rlucsaf", "rlu"), ("rldcsaf", "rld"),
+                          ("rsucsaf", "rsu"), ("rsdcsaf", "rsd")):
+            got = nc.var(name, dtype=None)
+            want = np.asarray(tiers[key], np.float32)
+            check(got.dtype == np.float32 and np.array_equal(got, want),
+                  f"RFMIP-IRF {name} read back unlike the run's fluxes")
+            checked += 1
+        for name, key, lev, _ in rfmip._REF_VARS:
+            got = nc.var(name, dtype=None)
+            want = np.asarray(tiers[key], np.float32)[:, lev]
+            check(np.array_equal(got, want), f"RFMIP-IRF {name} read back "
+                  "unlike the run's fluxes")
+            checked += 1
+        check(np.array_equal(nc.var("level_pressure", dtype=None),
+                             np.asarray(atm.level_pressure, np.float32)),
+              "RFMIP-IRF level_pressure read back unlike the input's")
+        check(nc.attr("rlucsaf", "units") == "W m-2"
+              and nc.dim_size("column") == 100, "RFMIP-IRF file metadata")
+    for key, v in tiers.items():
+        check(np.isfinite(v).all() and (v >= 0).all(),
+              f"RFMIP-IRF {key}: not finite or negative")
+    # K1 against the plain version on one LW launch at the app's rows.
+    part = {"p_lev": atm.level_pressure, "t_lev": atm.level_temperature,
+            "vmr": dict(atm.ppmv)}
+    k1 = full_rows_vs_plain(driver.lw_gas, int(MoleculeId.O2), part, dev,
+                            kernel_reps=3, plain_reps=1)
+    check(k1["rows"] == 6000, f"K1 vs plain on {k1['rows']} rows")
+    rfmip_run = dict(wall_s=wall, parse_s=parse_s, parses=parses,
+                     step_s=step_s, peak_bytes=peak, launches=launches,
+                     rows=rows, night_sites=night_sites,
+                     input_write_s=rfmip_write_s,
+                     variables_checked=checked, nw=[driver.lw_gas.grid.n,
+                                                    driver.sw_gas.grid.n])
+    del driver, res, tiers, steps[:]
+
+    # (c) ERA5 with clouds: 128 columns, -sw, Pade tables from files.
+    era5_nc, ghg_nc = path("era5.nc"), path("ghg.nc")
+    liquid, ice = path("liquid_pade.nc"), path("ice_pade.nc")
+    t0 = time.perf_counter()
+    examples.write_era5_inputs(era5_nc, ghg_nc)
+    synthetic_pade_table(nbnd=16, w0=1.0, wn=50000.0, seed=0,
+                         device="cpu").to_netcdf(liquid)
+    examples.ice_pade_table(device="cpu").to_netcdf(ice)
+    era5_write_s = time.perf_counter() - t0
+    out = path("era5_fluxes.nc")
+    argv = [path("hitran.par"), path("solar.csv"), era5_nc, ghg_nc,
+            "-year", "1"] + tables + ["-sw", "-integrated", "-liquid-path",
+                                      liquid, "-ice-path", ice, "-o", out]
+    wall5, parse5, parses5, launches5, plain5, peak5 = _run_app(
+        era5.main, argv, dev,
+        (era5, "build_driver", lambda b: _timed_build(b, steps)))
+    check(plain5 == 0, "the plain version ran in the ERA5 app")
+    check(launches5 > 0, "K1 never launched in the ERA5 app")
+    (step5, driver, res), = steps
+    check(sorted(res.tiers) == ["af", "csaf"],
+          f"ERA5 tiers {sorted(res.tiers)}, expected af and csaf")
+    rows5 = res.tiers["csaf"]["rlu"].shape[0] * driver_layers(era5_nc)
+    written, defined = [], []
+    with ncio.Dataset(out) as nc:
+        for name in nc.names():
+            if name in ("time", "lat", "lon", "level", "layer",
+                        "lw_wavenumber", "sw_wavenumber"):
+                continue
+            v = nc.var(name, dtype=None)
+            if nc.allocated(name):
+                check(np.isfinite(v).all(), f"ERA5 {name}: not finite")
+                written.append(name)
+            else:
+                check((v == ncio.Writer.FILL_VALUE).all(),
+                      f"ERA5 {name}: unwritten but not the fill value")
+                defined.append(name)
+        rsdt = nc.var("rsdtcsaf")
+        night = int((rsdt == 0.0).sum())
+        check(0 < night < rsdt.size, f"{night} of {rsdt.size} ERA5 columns "
+              "at night: expected some, not all")
+        # The clouds' effect: surface SW of the lit columns, and the OLR.
+        day = rsdt > 0
+        sw_effect = float(np.abs(nc.var("rsdsaf") - nc.var("rsdscsaf"))
+                          [day].max())
+        lw_effect = float(np.abs(nc.var("rlutaf") - nc.var("rlutcsaf"))
+                          .max())
+        check(sw_effect > 1.0, f"ERA5 clouds change the lit surface SW by "
+              f"at most {sw_effect:.3g} W m-2")
+    check(len(defined) > 0 and "rlutaf" in written,
+          f"ERA5 written {written}, defined only {defined}")
+    era5_run = dict(wall_s=wall5, parse_s=parse5, parses=parses5,
+                    step_s=step5, peak_bytes=peak5, launches=launches5,
+                    rows=rows5, input_write_s=era5_write_s,
+                    written=written, defined_only=defined,
+                    night_columns=night, cloud_sw_effect=sw_effect,
+                    cloud_lw_effect=lw_effect)
+    del driver, res, steps[:]
+    phase_s = time.perf_counter() - t_phase
+    info["phase14"] = dict(card=card, fixtures=fixtures, rfmip=rfmip_run,
+                           era5=era5_run, k1_vs_plain=k1, phase_s=phase_s)
+    gib = 2 ** 30
+    print(f"phase 14 apps with the port's netCDF IO ({card}): {fixtures} "
+          f"fixture datasets read bit for bit; RFMIP-IRF experiment 0, 100 "
+          f"sites x 61 levels ({rows} rows), LW {rfmip_run['nw'][0]} + SW "
+          f"{rfmip_run['nw'][1]} points: rfmip.main {wall:.2f} s wall, "
+          f"of it {parses} .par parses {parse_s:.2f} s and the step "
+          f"{step_s:.3f} s, peak {peak / gib:.2f} GiB, {launches} K1 "
+          f"launches ({night_sites} sites at night), none plain, "
+          f"{checked} variables read back equal to "
+          f"the run's fluxes; K1 vs plain at {k1['rows']} rows: "
+          f"{k1['summary']}; ERA5 with clouds, {rows5} rows "
+          f"({night} of 128 columns at night): era5.main {wall5:.2f} s "
+          f"wall, {parses5} parses {parse5:.2f} s, step {step5:.3f} s, "
+          f"peak {peak5 / gib:.2f} GiB, {launches5} K1 launches, none "
+          f"plain, {len(written)} variables written and finite, "
+          f"{len(defined)} only defined (fill value, no storage); clouds "
+          f"change the lit surface SW by up to {sw_effect:.1f} and the OLR "
+          f"by up to {lw_effect:.2f} W m-2",
+          flush=True)
+    print(f"phase 14 wall time {phase_s:.1f} s (inputs written "
+          f"{rfmip_write_s + era5_write_s:.2f} s)", flush=True)
+    return launches + launches5, k1["max_abs_err"]
+
+
+def driver_layers(era5_path):
+    """Layers of an ERA5 file's columns (its levels less one)."""
+    from grtcode_tpu_torch.utils import ncio
+
+    with ncio.Dataset(era5_path) as nc:
+        return nc.shape("p")[1] - 1
+
+
 def main():
     import torch
 
@@ -2084,12 +2369,17 @@ def main():
     torch.cuda.empty_cache()
     launches9 = phase_allsky(info, dev, info["card"])
     torch.cuda.empty_cache()
-    launches10, err10 = phase_circ_app(info, dev, info["card"])
-    torch.cuda.empty_cache()
-    cell, launches11 = phase_mesh(info, dev, info["card"])
-    launches12 = phase_aux(info, dev, info["card"], cell)
-    launches13 = phase_library(info, dev, info["card"], cell)
+    with tempfile.TemporaryDirectory() as app_dir:
+        launches10, err10 = phase_circ_app(info, dev, info["card"], app_dir)
+        torch.cuda.empty_cache()
+        cell, launches11 = phase_mesh(info, dev, info["card"])
+        launches12 = phase_aux(info, dev, info["card"], cell)
+        launches13 = phase_library(info, dev, info["card"], cell)
+        del cell
+        torch.cuda.empty_cache()
+        launches14, err14 = phase_apps_io(info, dev, info["card"], app_dir)
     check("jax" not in sys.modules, "JAX was imported")
+    check("h5py" not in sys.modules, "h5py was imported")
     info["seconds"] = time.perf_counter() - t0
 
     os.makedirs("chiprun_out", exist_ok=True)
@@ -2098,15 +2388,17 @@ def main():
     # K1 runs on every path (all 11 molecules at 0.1, the 4 SW molecules
     # in each block of the streamed one, 18 per all-sky step, 14 per CIRC
     # run, 11 per rank on a mesh, the segments', phase 12's and phase 13's
-    # steps); its launches are the seven counts.
+    # steps, phase 14's RFMIP-IRF and ERA5 apps); its launches are the
+    # eight counts.
     # No PyTorch call computes a Voigt sum over a line list: library_ms is
     # null for both.
     print(json.dumps({"kernels": [
         {"name": "voigt_line_sample", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES,
          "launches": k1_launches + launches8["voigt_line_sample"]
-         + launches9 + launches10 + launches11 + launches12 + launches13,
-         "max_abs_err": max(err3, err5, err10), "ms": o2["ms"],
+         + launches9 + launches10 + launches11 + launches12 + launches13
+         + launches14,
+         "max_abs_err": max(err3, err5, err10, err14), "ms": o2["ms"],
          "plain_ms": o2["plain_ms_mean"], "bound_ms": o2["bound_ms"],
          "bound_by": o2["bound_by"], "library_ms": None},
         {"name": "voigt_bins", "route": "cuda", "source": SOURCE_K2,

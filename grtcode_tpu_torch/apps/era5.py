@@ -20,7 +20,9 @@ Reference quirks:
     python -m grtcode_tpu_torch.apps.era5 lines.par solar.csv era5.nc \\
         ghg.nc -year 1 -clear -integrated -o fluxes.nc [-d N]
 
-needs h5py for the netCDF input and output.
+The netCDF inputs (the ERA5 snapshot, the GHG file, the Pade cloud
+tables) and the output go through the port's own HDF5 IO
+(``utils.ncio``).
 """
 from __future__ import annotations
 

@@ -18,7 +18,8 @@ driver, and writes CF-style flux output.  Reference quirks reproduced:
     python -m grtcode_tpu_torch.apps.rfmip lines.par solar.csv input.nc 0 \\
         -integrated -o fluxes.nc [-d N]
 
-needs h5py for the netCDF input and output.
+The netCDF input and output go through the port's own HDF5 IO
+(``utils.ncio``).
 """
 from __future__ import annotations
 

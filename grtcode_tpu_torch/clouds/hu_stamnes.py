@@ -7,7 +7,8 @@ grtcode_tpu/clouds/hu_stamnes.py): per (radius bin, band) power-law fits
 
 with the radius clamped to the table's valid range and its bin chosen by
 an upper-bound search.  Tables come from the reference's netCDF files
-(:meth:`HuStamnesLiquidOptics.from_netcdf`, through h5py) or from arrays.
+(:meth:`HuStamnesLiquidOptics.from_netcdf`, through the port's
+``utils.ncio``) or from arrays, on the device the caller names.
 """
 from __future__ import annotations
 
@@ -43,7 +44,7 @@ class HuStamnesLiquidOptics:
 
     @classmethod
     def from_arrays(cls, radii, band_lims, a, b, c, min_radius=None,
-                    max_radius=None, device="cpu"):
+                    max_radius=None, *, device):
         """Build from (3, nbins, nbands) a/b/c stacks."""
         def f(v):
             return torch.as_tensor(np.asarray(v, np.float32), device=device)

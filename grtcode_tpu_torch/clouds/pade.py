@@ -5,8 +5,9 @@ One vectorised evaluation over (..., band): the first size regime that
 holds the radius, Horner polynomials in the offset from the regime's
 reference radius, coefficients in dense (nbnd, nsizereg, ncoef) tensors.
 Tables come from RRTMGP-style netCDF files (:meth:`PadeCloudOptics.
-from_netcdf`, through h5py) or from arrays (:meth:`PadeCloudOptics.
-from_arrays`, :func:`synthetic_pade_table`).
+from_netcdf`, through the port's ``utils.ncio``) or from arrays
+(:meth:`PadeCloudOptics.from_arrays`, :func:`synthetic_pade_table`), on
+the device the caller names.
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ class PadeCloudOptics:
 
     @classmethod
     def from_arrays(cls, band_lims, sizereg_bounds, sizereg_ref, ext_p,
-                    ext_q, ssa_p, ssa_q, asy_p, asy_q, device="cpu"):
+                    ext_q, ssa_p, ssa_q, asy_p, asy_q, *, device):
         def f(a):
             return torch.as_tensor(np.asarray(a), dtype=torch.float32,
                                    device=device)
@@ -46,12 +47,13 @@ class PadeCloudOptics:
 
     @classmethod
     def from_netcdf(cls, path: str, device):
-        """Read an RRTMGP-style Pade file (HDF5-backed netCDF4 via h5py;
-        the variable names of cloud_pade_optics.c:38-126)."""
-        import h5py
-        with h5py.File(path, "r") as f:
+        """Read an RRTMGP-style Pade file (netCDF4 through ``ncio``; the
+        variable names of cloud_pade_optics.c:38-126)."""
+        from ..utils.ncio import Dataset
+
+        with Dataset(path) as f:
             def v(name):
-                return np.asarray(f[name])
+                return f.var(name)
 
             def coeffs(name):
                 # File layout (coef, sizereg, band) -> (band, sizereg, coef).
@@ -65,6 +67,30 @@ class PadeCloudOptics:
                 coeffs("Pade_ext_p"), coeffs("Pade_ext_q"),
                 coeffs("Pade_ssa_p"), coeffs("Pade_ssa_q"),
                 coeffs("Pade_asy_p"), coeffs("Pade_asy_q"), device=device)
+
+    def to_netcdf(self, path: str):
+        """Write the table as an RRTMGP-style Pade file, the layout
+        :meth:`from_netcdf` reads (float64, coefficients (coef, sizereg,
+        band)), through the port's own HDF5 writer."""
+        from ..utils.hdf5 import FileWriter
+
+        def host(t):
+            return t.cpu().numpy().astype(np.float64)
+
+        with FileWriter(path) as f:
+            for name, data in (
+                    ("Band_limits_lwr", host(self.band_lims)[0]),
+                    ("Band_limits_upr", host(self.band_lims)[1]),
+                    ("Effective_Radius_limits_lwr",
+                     host(self.sizereg_bounds)[0]),
+                    ("Effective_Radius_limits_upr",
+                     host(self.sizereg_bounds)[1]),
+                    ("Effective_Radius_Ref", host(self.sizereg_ref))):
+                f.create_dataset(name, data)
+            for name in ("ext_p", "ext_q", "ssa_p", "ssa_q", "asy_p",
+                         "asy_q"):
+                f.create_dataset(f"Pade_{name}",
+                                 host(getattr(self, name)).transpose(2, 1, 0))
 
     def evaluate(self, content, radius):
         """(extinction, ssa, g), each (..., nbnd), of condensate amounts
@@ -100,8 +126,8 @@ class PadeCloudOptics:
 
 
 def synthetic_pade_table(nbnd: int = 16, w0: float = 1.0,
-                         wn: float = 3250.0, seed: int = 0,
-                         device="cpu") -> PadeCloudOptics:
+                         wn: float = 3250.0, seed: int = 0, *,
+                         device) -> PadeCloudOptics:
     """A physically plausible synthetic table for tests and data-free runs
     (the JAX package's, draw for draw): smooth positive extinction (~0.05-
     0.3 m2 g-1), ssa in (0, 1), g in (0, 0.95), two size regimes."""

@@ -402,3 +402,103 @@ def golden_case(directory: str, inputs: dict, lw_grid: SpectralGrid,
             ice_water_content=cld["qi"][None],
             layer_thickness=cld["thickness"][None])
     return driver, atm
+
+
+def write_rfmip_input(path: str, nsite: int = 100, nexpt: int = 18,
+                      nlayer: int = 60, seed: int = 5):
+    """A synthetic RFMIP-IRF input file at the real file's size (100 sites,
+    18 experiments, 61 levels / 60 layers): the variables, float64 types,
+    string ``units`` and value recipe of tests/test_rfmip.py's input, drawn
+    in its order (at its 5 sites, 3 experiments and 10 layers the values
+    are its own), written by the port's HDF5 writer."""
+    from .utils.hdf5 import FileWriter
+
+    rng = np.random.default_rng(seed)
+    nlevel = nlayer + 1
+    with FileWriter(path) as f:
+        f.create_dataset("site", np.arange(nsite, dtype=np.float64))
+        f.create_dataset("level", np.arange(nlevel, dtype=np.float64))
+        p_lev = np.linspace(1.0, 101325.0, nlevel)[None, :] * \
+            rng.uniform(0.95, 1.05, (nsite, 1))          # [Pa]
+        f.create_dataset("pres_level", p_lev)
+        f.create_dataset("pres_layer", 0.5 * (p_lev[:, :-1] + p_lev[:, 1:]))
+        t_lev = np.linspace(210.0, 290.0, nlevel)[None, None, :] + \
+            rng.uniform(-3, 3, (nexpt, nsite, nlevel))
+        f.create_dataset("temp_level", t_lev)
+        f.create_dataset("temp_layer", 0.5 * (t_lev[..., :-1]
+                                              + t_lev[..., 1:]))
+        f.create_dataset("surface_temperature", t_lev[..., -1] + 1.0)
+        f.create_dataset("solar_zenith_angle",
+                         np.resize([30.0, 60.0, 85.0, 95.0, 45.0], nsite))
+        f.create_dataset("total_solar_irradiance", np.full(nsite, 1361.0))
+        f.create_dataset("surface_albedo", rng.uniform(0.05, 0.3, nsite))
+        f.create_dataset("surface_emissivity", rng.uniform(0.95, 1.0, nsite))
+        f.create_dataset("water_vapor",
+                         rng.uniform(1e-6, 1e-2, (nexpt, nsite, nlayer)))
+        f.create_dataset("ozone",
+                         rng.uniform(1e-8, 1e-5, (nexpt, nsite, nlayer)))
+        for name, value, units in (
+                ("carbon_dioxide_GM", 397.55, "1e-06"),
+                ("methane_GM", 1831.47, "1e-09"),
+                ("nitrous_oxide_GM", 326.99, "1e-09"),
+                ("carbon_monoxide_GM", 0.12, "1e-06"),
+                ("oxygen_GM", 0.2095, "1"), ("nitrogen_GM", 0.781, "1"),
+                ("cfc11_GM", 233.05, "1e-12"),
+                ("cfc11eq_GM", 653.46, "1e-12"),
+                ("cfc12_GM", 520.58, "1e-12"),
+                ("hfc134aeq_GM", 300.0, "1e-12"),
+                ("sf6_GM", 8.16, "1e-12")):
+            f.create_dataset(name, np.full(nexpt, value)).attrs["units"] = \
+                units
+
+
+def write_era5_inputs(era5_path: str, ghg_path: str, ntime: int = 1,
+                      nlevel: int = 37, nlat: int = 8, nlon: int = 16,
+                      seed: int = 9):
+    """A synthetic preprocessed ERA5 snapshot (the variables of
+    tests/test_era5.py's file: time, lat, lon, p, t, q, o3, skt, fal,
+    tisr, cc, ciwc, clwc) and a 5-year GHG file, written by the port's
+    HDF5 writer.  Pressure levels 1-1,000 mb; humidity falling off with
+    height; the eastern half of the longitudes at night (tisr 0); liquid
+    cloud below 500 mb and ice between 150 and 500 mb, at a tenth of
+    tests/test_era5.py's mixing ratios, so the layers' cloud optical
+    depths stay below ~10."""
+    from .utils.hdf5 import FileWriter
+
+    rng = np.random.default_rng(seed)
+    shape = (ntime, nlevel, nlat, nlon)
+    p = np.linspace(1.0, 1000.0, nlevel)[None, :, None, None] * \
+        np.ones((ntime, 1, nlat, nlon))                        # [mb]
+    lon = np.arange(nlon) * (360.0 / nlon)
+    day = (lon < 180.0)[None, None, :]
+    with FileWriter(era5_path) as f:
+        f.create_dataset("time", np.arange(ntime, dtype=np.float64))
+        f.create_dataset("lat", np.linspace(-80.0, 80.0, nlat))
+        f.create_dataset("lon", lon)
+        f.create_dataset("p", p)
+        f.create_dataset("t", np.linspace(220, 290, nlevel)[None, :, None,
+                                                            None]
+                         + rng.uniform(-3, 3, shape))
+        # Specific humidity falling off as p^4 from ~1e-2 at the surface,
+        # floored at a stratospheric 3e-6 (tests/test_era5.py draws
+        # uniform(1e-6, 1e-2) at every level, which the full line list
+        # makes opaque far above the clouds).
+        f.create_dataset("q", np.maximum(
+            3e-6, 1e-2 * (p / 1000.0) ** 4 * rng.uniform(0.5, 1.5, shape)))
+        f.create_dataset("o3", rng.uniform(1e-8, 1e-5, shape))
+        f.create_dataset("skt", rng.uniform(280, 300, (ntime, nlat, nlon)))
+        f.create_dataset("fal", rng.uniform(0.05, 0.5, (ntime, nlat, nlon)))
+        f.create_dataset("tisr", rng.uniform(0.2e7, 1.6e7,
+                                             (ntime, nlat, nlon)) * day)
+        f.create_dataset("cc", rng.uniform(-0.1, 0.9, shape))
+        f.create_dataset("ciwc", rng.uniform(-1e-7, 1e-5, shape)
+                         * ((p > 150.0) & (p < 500.0)))
+        f.create_dataset("clwc", rng.uniform(-1e-7, 5e-5, shape)
+                         * (p >= 500.0))
+    years = np.arange(5)
+    with FileWriter(ghg_path) as f:
+        f.create_dataset("co2", 300.0 + years)
+        f.create_dataset("ch4", 1.7 + 0.01 * years)
+        f.create_dataset("n2o", 0.3 + 0.001 * years)
+        f.create_dataset("hfc134aeq", 1e-4 * (1 + years))
+        f.create_dataset("cfc12eq", 5e-4 * (1 + years))

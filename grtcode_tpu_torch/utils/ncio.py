@@ -1,16 +1,19 @@
-"""Minimal netCDF4 (HDF5-backed) IO over h5py (a copy of
-grtcode_tpu/utils/ncio.py; h5py is imported only when a file is opened).
+"""Minimal netCDF4 (HDF5-backed) IO (the API of
+grtcode_tpu/utils/ncio.py) over the port's own HDF5 reader and writer,
+:mod:`grtcode_tpu_torch.utils.hdf5`, in numpy and the standard library.
 
 The reference links libnetcdf for its file IO (rfmip-irf.c, era5.c,
-clouds/netcdf_utils.c); the netCDF4 python bindings are not needed:
-netCDF4 files ARE HDF5 files, so h5py covers both reading benchmark
-inputs and writing CF-style outputs (datasets as variables, HDF5
-dimension scales as netCDF dimensions).  Classic netCDF3 files are not
-supported — the RFMIP/ERA5/CIRC distributions are netCDF4.
+clouds/netcdf_utils.c).  netCDF4 files ARE HDF5 files: variables are
+datasets and netCDF dimensions HDF5 dimension scales.  Classic netCDF3
+files are not supported (the RFMIP/ERA5/CIRC distributions are netCDF4);
+the reader raises ``NotImplementedError`` on them and on any HDF5 feature
+it does not decode.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from . import hdf5
 
 
 def _decode(v):
@@ -25,8 +28,7 @@ class Dataset:
     """Read-only view of a netCDF4/HDF5 file."""
 
     def __init__(self, path: str):
-        import h5py
-        self._f = h5py.File(path, "r")
+        self._f = hdf5.File(path)
 
     def close(self):
         self._f.close()
@@ -40,15 +42,31 @@ class Dataset:
     def has(self, name: str) -> bool:
         return name in self._f
 
-    def var(self, name: str, sel=()):
-        """Read (a hyperslab of) a variable as float64; `sel` is a tuple of
-        slices/indices applied in stored order."""
-        ds = self._f[name]
-        data = ds[sel] if sel != () else ds[()]
-        return np.asarray(data, np.float64)
+    def names(self) -> list:
+        """The root group's members, variables and dimensions."""
+        return self._f.keys()
+
+    def shape(self, name: str) -> tuple:
+        return self._f[name].shape
+
+    def allocated(self, name: str) -> bool:
+        """Whether the variable's storage was ever written (a variable
+        only defined has none and reads back as its fill value)."""
+        return self._f[name].allocated
+
+    def var(self, name: str, sel=(), dtype=np.float64):
+        """Read (a hyperslab of) a variable as ``dtype`` (``None``: as
+        stored); `sel` is a tuple of slices/indices applied in stored
+        order."""
+        data = self._f[name].read(sel)
+        return data if dtype is None else np.asarray(data, dtype)
 
     def attr(self, var: str, name: str):
-        return _decode(self._f[var].attrs[name])
+        """An attribute of variable ``var`` ("/" for a global one); strings
+        come back as ``str`` whether stored fixed-length (netCDF-C) or
+        variable-length (h5py)."""
+        return _decode(self._f[var].attrs[name] if var != "/"
+                       else self._f.attrs[name])
 
     def dim_size(self, name: str) -> int:
         """Size of a named dimension (its coordinate/scale dataset)."""
@@ -64,15 +82,14 @@ class Writer:
     """
 
     def __init__(self, path: str):
-        import h5py
-        self._f = h5py.File(path, "w")
+        self._f = hdf5.FileWriter(path)
         self._dims = {}
 
     def create_dimension(self, name: str, size: int, values=None):
         data = (np.arange(size, dtype=np.float64)
                 if values is None else np.asarray(values, np.float64))
-        ds = self._f.create_dataset(name, data=data)
-        ds.make_scale(name)
+        ds = self._f.create_dataset(name, data)
+        self._f.make_scale(ds, name)
         self._dims[name] = ds
 
     # netCDF NC_FILL_FLOAT: defined-but-unwritten variables read back as
@@ -84,21 +101,20 @@ class Writer:
                         units: str | None = None, **attrs):
         """Define a variable over named dimensions; ``data=None`` defines
         it without writing (the netCDF fill-value pattern era5.c relies on
-        for variables its configuration never computes — HDF5 allocates
-        lazily, so unwritten variables cost no file space and read back
+        for variables its configuration never computes: no storage is
+        allocated, so unwritten variables cost no file space and read back
         as NC_FILL_FLOAT)."""
         if data is None:
             shape = tuple(self._dims[d].shape[0] for d in dims)
             ds = self._f.create_dataset(name, shape=shape, dtype=np.float32,
                                         fillvalue=self.FILL_VALUE)
         else:
-            ds = self._f.create_dataset(name,
-                                        data=np.asarray(data, np.float32))
+            ds = self._f.create_dataset(name, np.asarray(data, np.float32))
         for i, d in enumerate(dims):
-            ds.dims[i].attach_scale(self._dims[d])
+            self._f.attach_scale(ds, self._dims[d], i)
         # Dimension-name metadata (the netCDF header carries this
-        # natively); tools/combine_segments.py uses it to locate the lon
-        # axis per variable.
+        # natively); the segment combiners use it to locate the lon axis
+        # per variable.
         ds.attrs["_dims"] = np.array([d.encode() for d in dims])
         if units is not None:
             ds.attrs["units"] = units
@@ -106,8 +122,7 @@ class Writer:
             ds.attrs[k] = v
 
     def set_global(self, **attrs):
-        for k, v in attrs.items():
-            self._f.attrs[k] = v
+        self._f.attrs.update(attrs)
 
     def close(self):
         self._f.close()

@@ -58,8 +58,10 @@ def test_cloudy_main_matches_jax(inputs, era5_file, ghg_file,  # noqa: F811
         for name in ("clwc", "ciwc"):
             f[name][...] = 0.01 * f[name][...]
     liquid, ice = str(tmp_path / "liquid.nc"), str(tmp_path / "ice.nc")
-    write_pade(liquid, synthetic_pade_table(wn=50000.0, seed=0))
-    write_pade(ice, synthetic_pade_table(wn=50000.0, seed=1))
+    write_pade(liquid, synthetic_pade_table(wn=50000.0, seed=0,
+                                            device="cpu"))
+    write_pade(ice, synthetic_pade_table(wn=50000.0, seed=1,
+                                         device="cpu"))
     argv = era5_argv(inputs, clouds, ghg_file, "-sw", "-integrated",
                      "-flux-at-level", "2", "-liquid-path", liquid,
                      "-ice-path", ice)

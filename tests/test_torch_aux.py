@@ -174,7 +174,8 @@ def test_debug_mode_flags_disort_on_the_old_ice_table():
     from grtcode_tpu_torch.clouds.pade import synthetic_pade_table
     from grtcode_tpu_torch.solvers.disort import disort_shortwave
 
-    old = synthetic_pade_table(nbnd=16, w0=1.0, wn=50000.0, seed=1)
+    old = synthetic_pade_table(nbnd=16, w0=1.0, wn=50000.0, seed=1,
+                               device="cpu")
     for table, traps in ((old, True),
                          (examples.ice_pade_table(device="cpu"), False)):
         ssa, g, tau = _cirrus_optics(table)
@@ -290,6 +291,7 @@ def test_allsky_ice_table_is_physical():
     ssa_cell, g_cell, _ = _cirrus_optics(table)
     assert float(ssa_cell.max()) <= 1.0 and float(g_cell.abs().max()) < 1.0
     old_ssa, old_g, _ = _cirrus_optics(
-        synthetic_pade_table(nbnd=16, w0=1.0, wn=50000.0, seed=1))
+        synthetic_pade_table(nbnd=16, w0=1.0, wn=50000.0, seed=1,
+                             device="cpu"))
     assert float(old_ssa.max()) > 1.0 and float(old_g.max()) > 1.0
     assert driver.cloud_optics is not None

@@ -249,7 +249,7 @@ def test_band_to_grid_matches_jax(table):
 def test_synthetic_pade_table_equals_jax():
     jt = jpade.synthetic_pade_table(nbnd=16, w0=1.0, wn=50000.0, seed=1)
     for t in (pade.synthetic_pade_table(nbnd=16, w0=1.0, wn=50000.0,
-                                        seed=1),
+                                        seed=1, device="cpu"),
               pade_from_jax(jt, "cpu")):
         for f in ("band_lims", "sizereg_bounds", "sizereg_ref", "ext_p",
                   "ext_q", "ssa_p", "ssa_q", "asy_p", "asy_q"):
@@ -285,7 +285,7 @@ def _hu_stamnes_tables():
     c = rng.uniform(0.0, 0.1, (3, nbins, nbands))
     return (jhs.HuStamnesLiquidOptics.from_arrays(radii, band_lims, a, b, c),
             hu_stamnes.HuStamnesLiquidOptics.from_arrays(radii, band_lims, a,
-                                                         b, c))
+                                                         b, c, device="cpu"))
 
 
 def test_hu_stamnes_evaluate_matches_jax():

@@ -112,8 +112,10 @@ def _jax_model(lw_method="line_sample", sw_band=(1000.0, 9000.0, 4.0)):
 
 def _port(jdriver):
     clouds = CloudOpticsLib(
-        liquid=synthetic_pade_table(nbnd=8, w0=1.0, wn=10000.0, seed=0),
-        ice=synthetic_pade_table(nbnd=8, w0=1.0, wn=10000.0, seed=1))
+        liquid=synthetic_pade_table(nbnd=8, w0=1.0, wn=10000.0, seed=0,
+                                    device="cpu"),
+        ice=synthetic_pade_table(nbnd=8, w0=1.0, wn=10000.0, seed=1,
+                                 device="cpu"))
     return driver_from_jax(jdriver, "cpu",
                            cloud_optics=clouds.driver_callback())
 

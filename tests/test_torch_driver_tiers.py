@@ -138,7 +138,8 @@ def test_allsky_like_builds_its_fields(smoke):
     # Its cloud optics: the synthetic Pade liquid table of seed 0 and the
     # physical ice table, both over 1-50,000 cm-1 in 16 bands.
     lib = CloudOpticsLib(
-        liquid=synthetic_pade_table(nbnd=16, w0=1.0, wn=50000.0, seed=0),
+        liquid=synthetic_pade_table(nbnd=16, w0=1.0, wn=50000.0, seed=0,
+                                    device="cpu"),
         ice=examples.ice_pade_table(device="cpu"))
     dev = driver.device
     f32 = torch.float32
