@@ -12,9 +12,10 @@ all-sky step (aerosols, stochastic clouds, half the columns at night) at
 LW 0.1, the CIRC app with both SW solvers, the line_sample step over
 (columns x spectral) meshes of ranks with the all-sky cell's per-node
 segments, the metrics, debug and C ABI modules, the library path
-built by hand from the public imports, and the RFMIP-IRF and cloudy ERA5
+built by hand from the public imports, the RFMIP-IRF and cloudy ERA5
 apps with their netCDF files read and written by the port's own HDF5 IO,
-in fourteen phases (one line each):
+and the headline benchmark (grtcode_tpu_torch.bench) with the float64
+solver check, in fifteen phases (one line each):
 
   1. the card: name and power limit as nvidia-smi gives them (on a line
      of their own, then the phase line with the torch / CUDA versions and
@@ -124,7 +125,17 @@ in fourteen phases (one line each):
      (examples.write_era5_inputs, half the columns at night): the file
      read back, written fluxes finite, variables only defined at the fill
      value with no storage; (d) the phase's wall time on a line of its
-     own.
+     own;
+ 15. the headline benchmark, grtcode_tpu_torch.bench.main in-process:
+     (a) at the defaults (B = 32, LW 0.1, 11 K1 launches a step) and at
+     --method wavenumber_sweep --lw-res 0.01 (10 LW blocks, 70 K2 + 4 K1
+     launches a step), both with --profile, each run's JSON line, its
+     launches from the dispatchers' counts and no plain launch; (b)
+     ``python -m grtcode_tpu_torch.bench --smoke`` as a subprocess; (c)
+     x64_validate on the card (20 float64 comparisons within 3e-8 of the
+     f64 reference-C goldens); (d) the bench step on the card against
+     the CPU at smoke size, line_sample and the streamed bin method, at
+     the driver golden's 1e-4.
 
 Prints a kernels JSON line and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero without that line; there is no CPU
@@ -140,7 +151,7 @@ import numpy as np
 
 from grtcode_tpu_torch.kernel_bench import (band_prep, card_line,
                                             census_line_sample, clocks,
-                                            cuda_ms)
+                                            cuda_ms, k1_bound, k2_bound)
 
 TOL_KERNEL = dict(rtol=2e-6, atol=1e-12)   # tests/test_pallas.py:96
 TOL_BIN_KERNEL = dict(rtol=2e-5, atol=2e-6)  # x max; test_bins_pallas.py:88
@@ -552,7 +563,7 @@ def phase_full_width(info, dev, card):
     o3_ms = cuda_ms(lambda: vk.accumulate_voigt(
         prep, ns, lw_gas.chunk_ranges[3], tau0=tau, **kw), 2)
     o3_lines = prep.strength.shape[1]
-    o3 = k1_bound(prep, lw_gas.chunk_ranges[3], kw)
+    o3 = k1_bound(prep, lw_gas.chunk_ranges[3], **kw)
     del prep, tau
 
     info["phase5"] = dict(
@@ -575,19 +586,6 @@ def phase_full_width(info, dev, card):
           f"{census_summary(o3['census'])}; profiled step: "
           f"{breakdown['summary']}", flush=True)
     return launches, max(o2["max_abs_err"], sw_h2o["max_abs_err"]), o2
-
-
-def k1_bound(prep, ranges, kw):
-    """K1's census on one molecule of a band and the bound it gives: the
-    inputs read once, tau read and written once, the operations per sample
-    by Humlicek region (grtcode_tpu_torch.kernel_bench.OPS)."""
-    from grtcode_tpu_torch.kernel_bench import (
-        bound_ms, census_line_sample, line_sample_lines_reached)
-    rows, n_lines = prep.strength.shape
-    cen = census_line_sample(prep, ranges, **kw)
-    reached = line_sample_lines_reached(ranges, 0, kw["num_wpoints"], n_lines)
-    nbytes = 4 * rows * (5 * reached + 1 + 2 * kw["num_wpoints"])
-    return dict(bound_ms(cen["samples"], nbytes), census=cen)
 
 
 def census_summary(cen):
@@ -639,7 +637,7 @@ def full_rows_vs_plain(gas, mol, batch, dev, kernel_reps, plain_reps):
     plain_ms.append(cuda_ms(lambda: vk.voigt_line_sample_reference(
         prep, ns, tau0=tau, **kw), plain_reps))
     k_ms, p_ms = float(np.mean(kernel_ms)), float(np.mean(plain_ms))
-    bound = k1_bound(prep, ranges, kw)
+    bound = k1_bound(prep, ranges, **kw)
     return dict(
         rows=rows, lines=n_lines, nw=kw["num_wpoints"], fsteps=kw["fsteps"],
         near=kw["near"], max_abs_err=err, worst_share=share,
@@ -948,8 +946,6 @@ def bin_full_rows_vs_plain(gas, mol, batch, dev, nbins, kernel_reps,
     import torch
     from grtcode_tpu_torch.gas_optics import bins as bm
     from grtcode_tpu_torch.gas_optics import bins_kernel as bk
-    from grtcode_tpu_torch.kernel_bench import (bound_ms, census_bins,
-                                                lines_reached)
 
     prep, ns, _ = band_prep(gas, mol, batch, dev)
     rows, n_lines = prep.strength.shape
@@ -990,16 +986,8 @@ def bin_full_rows_vs_plain(gas, mol, batch, dev, nbins, kernel_reps,
     kernel_ms = [cuda_ms(lambda: kernel(buf), kernel_reps) for _ in range(2)]
     plain_ms.append(cuda_ms(lambda: plain(buf), plain_reps))
     k_ms, p_ms = float(np.mean(kernel_ms)), float(np.mean(plain_ms))
-    # The bound: inputs read once, both buffers read and written once, the
-    # fine samples by class and every coarse sample at region 0's count
-    # (the remote lines lie >= 1 cm-1 away: |x| >> 123 at these widths).
-    cen = census_bins(prep, ranges, gas.bins, **kw)
-    samples = dict(cen["fine_samples"])
-    samples["region0"] += cen["coarse_total"]
-    reached = lines_reached(ranges, 0, nbins)
-    nbytes = 4 * rows * (5 * reached + 1 + 2 * nbins * (gas.bins.ppb
-                                                        + bm.NIP))
-    bound = dict(bound_ms(samples, nbytes), census=cen)
+    bound = k2_bound(prep, ranges, gas.bins, **kw)
+    cen = bound["census"]
     return dict(
         rows=rows, lines=n_lines, nbins=nbins, ppb=gas.bins.ppb,
         max_abs_err=worst, worst_share=worst_share, kernel_ms=kernel_ms,
@@ -1121,7 +1109,7 @@ def phase_allsky(info, dev, card):
                             for m, v in atm.ppmv.items()}}
             for mol in gas.molecules:
                 prep, _, kw = band_prep(gas, mol, part, dev)
-                b = k1_bound(prep, gas.chunk_ranges[mol], kw)
+                b = k1_bound(prep, gas.chunk_ranges[mol], **kw)
                 k1_step_bound += b["bound_ms"]
                 bound_by.append(b["bound_by"])
                 del prep
@@ -1446,7 +1434,7 @@ def phase_circ_app(info, dev, card, d):
     for gas in (driver.lw_gas, driver.sw_gas):
         for mol in gas.molecules:
             prep, _, kw = band_prep(gas, mol, part, dev)
-            b = k1_bound(prep, gas.chunk_ranges[mol], kw)
+            b = k1_bound(prep, gas.chunk_ranges[mol], **kw)
             k1_bound_ms += b["bound_ms"]
             bound_by.append(b["bound_by"])
             del prep
@@ -2336,6 +2324,152 @@ def phase_apps_io(info, dev, card, d):
     return launches + launches5, k1["max_abs_err"]
 
 
+# Phase 15: the bench's configurations (argv of grtcode_tpu_torch.bench)
+# and the smoke-size steps held against the CPU (build keywords, LW blocks,
+# columns): the bin-method step runs on 2 columns, where the CPU's plain
+# bin version takes ~10-40 s.
+BENCH_RUNS = {"line_sample, LW 0.1": ["--profile"],
+              "wavenumber_sweep, LW 0.01": ["--method", "wavenumber_sweep",
+                                            "--lw-res", "0.01", "--profile"]}
+BENCH_VS_CPU = {"line_sample": ({}, 1, None),
+                "wavenumber_sweep 0.01": (dict(lw_method="wavenumber_sweep",
+                                               lw_res=0.01), 2, 2)}
+
+
+def phase_bench(info, dev, card):
+    """Phase 15: the port's headline benchmark, grtcode_tpu_torch.bench,
+    in-process on the card at the defaults (B = 32, LW 0.1) and at
+    --method wavenumber_sweep --lw-res 0.01 (10 LW blocks), both with
+    --profile: each JSON line printed by main, the K1 / K2 launches of
+    each run from the dispatchers' counts (one untimed, 10 timed and 2
+    profiled steps, each of the launches kernel_work counts), no plain
+    launch, every device key present.  Then the CLI as a subprocess
+    (--smoke), the float64 solver check (x64_validate) on the card, and
+    the bench's step on the card against the same step on the CPU at
+    smoke size (TOL_GOLDEN, the driver golden's rule).  Returns the
+    phase's launches by kernel."""
+    import contextlib
+    import io
+    import subprocess
+    import torch
+    from grtcode_tpu_torch import bench, x64_validate
+    from grtcode_tpu_torch.gas_optics import bins as bm
+    from grtcode_tpu_torch.gas_optics import bins_kernel as bk
+    from grtcode_tpu_torch.gas_optics import voigt_kernel as vk
+
+    t_phase = time.perf_counter()
+    held = torch.cuda.memory_allocated(dev)
+    steps = 1 + 10 + 2          # first, timed and profiled steps
+    counts = (vk.accumulate_voigt, bk.accumulate_bins_kernel,
+              vk.voigt_line_sample_reference, bm.accumulate_bins)
+    # The main path, with every launch count starting at 0.
+    for fn in counts:
+        fn.launches = 0
+    runs = {}
+    for name, argv in BENCH_RUNS.items():
+        before = (vk.accumulate_voigt.launches,
+                  bk.accumulate_bins_kernel.launches)
+        t0 = time.perf_counter()
+        res = bench.main(argv, device=dev)
+        wall = time.perf_counter() - t0
+        got = (vk.accumulate_voigt.launches - before[0],
+               bk.accumulate_bins_kernel.launches - before[1])
+        per = res["kernel_launches_per_step"]
+        want = (per["voigt_line_sample"] * steps, per["voigt_bins"] * steps)
+        check(got == want, f"bench {name}: {got} K1 / K2 launches, expected "
+              f"{want}")
+        for key in ("value", "ms_per_step", "compile_first_s",
+                    "peak_hbm_gib", "est_tflops", "est_share_of_f32_peak",
+                    "kernel_bound_ms_per_step", "profiled_kernel_ms_per_step",
+                    "profiled_device_ms_per_step", "profiled_tflops",
+                    "profiled_share_of_f32_peak"):
+            check(key in res and res[key] > 0, f"bench {name}: {key} "
+                  f"missing or not positive ({res.get(key)})")
+        check(0.0 <= res.get("profiled_idle_share", -1.0) < 1.0,
+              f"bench {name}: profiled_idle_share "
+              f"{res.get('profiled_idle_share')}")
+        check(res["metric"] == "gridpoints_per_s_per_chip",
+              f"bench {name}: metric {res['metric']}")
+        runs[name] = dict(res, wall_s=wall, launches=got)
+        torch.cuda.empty_cache()
+    launches = {"voigt_line_sample": vk.accumulate_voigt.launches,
+                "voigt_bins": bk.accumulate_bins_kernel.launches}
+    plain = (vk.voigt_line_sample_reference.launches,
+             bm.accumulate_bins.launches)
+    check(plain == (0, 0), f"the plain versions ran {plain} times in the "
+          "bench runs")
+
+    # The CLI itself on the card.
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "grtcode_tpu_torch.bench",
+                           "--smoke"], capture_output=True, text=True,
+                          timeout=600)
+    cli_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"bench --smoke exited {proc.returncode}: "
+          f"{proc.stderr.strip()[-2000:]}")
+    cli = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(cli["metric"] == "gridpoints_per_s_per_chip" and cli["value"] > 0
+          and cli["device"] == torch.cuda.get_device_name(dev),
+          f"bench --smoke: {cli}")
+    print(json.dumps(cli), flush=True)
+
+    # The float64 solver check on the card.
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = x64_validate.main(["--device", str(dev)])
+    lines = out.getvalue().strip().splitlines()
+    check(rc == 0 and lines[-1].startswith("X64 OK"),
+          "x64_validate on the card: " + "; ".join(lines))
+    rels = [float(ln.split("max rel ")[1].split()[0]) for ln in lines[:-1]]
+    check(len(rels) == 20 and max(rels) <= 10 * x64_validate.RTOL,
+          f"x64_validate: {len(rels)} comparisons, worst {max(rels):.2e}")
+
+    # The step on the card against the CPU at smoke size.
+    vs_cpu = {}
+    for name, (kw, blocks, cols) in BENCH_VS_CPU.items():
+        outs = []
+        for d in (dev, torch.device("cpu")):
+            lw, sw, solar, batch, _, _ = bench.build(
+                smoke=True, batch_size=cols, device=d, **kw)
+            res = bench.make_step(lw, sw, solar, lw_blocks=blocks)(
+                *bench.step_args(batch), torch.zeros((), device=d))
+            outs.append([r.cpu().numpy() for r in res])
+        errs = {var: worst_rel(g, w) for var, g, w in zip(
+            ("rlu", "rld", "rsu", "rsd", "chain"), *outs)}
+        check(all(np.isfinite(g).all() for g in outs[0]),
+              f"bench step {name} on the card: not finite")
+        check(max(errs.values()) <= TOL_GOLDEN, f"bench step {name}: card "
+              f"vs CPU {errs} > {TOL_GOLDEN}")
+        vs_cpu[name] = errs
+    phase_s = time.perf_counter() - t_phase
+
+    info["phase15"] = dict(card=card, runs=runs, launches=launches, cli=cli,
+                           cli_s=cli_s, x64=lines, vs_cpu=vs_cpu,
+                           held_bytes=held, phase_s=phase_s)
+    parts = []
+    for name, r in runs.items():
+        parts.append(
+            f"{name}: {r['value']:.4e} points/s, {r['ms_per_step']:.1f} "
+            f"ms/step, first step {r['compile_first_s']:.2f} s, peak "
+            f"{r['peak_hbm_gib']:.2f} GiB, {r['launches'][0]} K1 + "
+            f"{r['launches'][1]} K2 launches, est {r['est_tflops']:.3f} "
+            f"TFLOP/s ({r['est_share_of_f32_peak']:.2%} of f32 peak), "
+            f"kernel bound {r['kernel_bound_ms_per_step']:.2f} ms/step, "
+            f"profiled kernels {r['profiled_kernel_ms_per_step']:.1f} of "
+            f"{r['profiled_device_ms_per_step']:.1f} ms busy/step "
+            f"({r['profiled_tflops']:.3f} TFLOP/s, idle "
+            f"{r['profiled_idle_share']:.1%}), run {r['wall_s']:.1f} s")
+    print(f"phase 15 bench ({card}): " + "; ".join(parts)
+          + f"; no plain launch; CLI --smoke {cli['value']:.4e} points/s "
+          f"in {cli_s:.1f} s; x64_validate on the card 20 comparisons, "
+          f"worst {max(rels):.2e} <= {10 * x64_validate.RTOL:.0e}; card vs "
+          f"CPU at smoke size, worst rel "
+          + ", ".join(f"{n} {max(e.values()):.2e}" for n, e in vs_cpu.items())
+          + f" <= {TOL_GOLDEN}; {held / 2 ** 30:.2f} GiB held before the "
+          f"phase; phase {phase_s:.1f} s", flush=True)
+    return launches
+
+
 def driver_layers(era5_path):
     """Layers of an ERA5 file's columns (its levels less one)."""
     from grtcode_tpu_torch.utils import ncio
@@ -2378,6 +2512,8 @@ def main():
         del cell
         torch.cuda.empty_cache()
         launches14, err14 = phase_apps_io(info, dev, info["card"], app_dir)
+    torch.cuda.empty_cache()
+    launches15 = phase_bench(info, dev, info["card"])
     check("jax" not in sys.modules, "JAX was imported")
     check("h5py" not in sys.modules, "h5py was imported")
     info["seconds"] = time.perf_counter() - t0
@@ -2388,8 +2524,9 @@ def main():
     # K1 runs on every path (all 11 molecules at 0.1, the 4 SW molecules
     # in each block of the streamed one, 18 per all-sky step, 14 per CIRC
     # run, 11 per rank on a mesh, the segments', phase 12's and phase 13's
-    # steps, phase 14's RFMIP-IRF and ERA5 apps); its launches are the
-    # eight counts.
+    # steps, phase 14's RFMIP-IRF and ERA5 apps, phase 15's bench runs);
+    # its launches are the nine counts.  K2 runs on phase 8's streamed
+    # steps and phase 15's bin-method bench.
     # No PyTorch call computes a Voigt sum over a line list: library_ms is
     # null for both.
     print(json.dumps({"kernels": [
@@ -2397,12 +2534,13 @@ def main():
          "replaces": REPLACES,
          "launches": k1_launches + launches8["voigt_line_sample"]
          + launches9 + launches10 + launches11 + launches12 + launches13
-         + launches14,
+         + launches14 + launches15["voigt_line_sample"],
          "max_abs_err": max(err3, err5, err10, err14), "ms": o2["ms"],
          "plain_ms": o2["plain_ms_mean"], "bound_ms": o2["bound_ms"],
          "bound_by": o2["bound_by"], "library_ms": None},
         {"name": "voigt_bins", "route": "cuda", "source": SOURCE_K2,
-         "replaces": REPLACES_K2, "launches": launches8["voigt_bins"],
+         "replaces": REPLACES_K2,
+         "launches": launches8["voigt_bins"] + launches15["voigt_bins"],
          "max_abs_err": max(err6, o2_bins["max_abs_err"]),
          "ms": o2_bins["ms"], "plain_ms": o2_bins["plain_ms_mean"],
          "bound_ms": o2_bins["bound_ms"], "bound_by": o2_bins["bound_by"],

@@ -220,12 +220,21 @@ def census_bins(prep, ranges, bins, *, start_bin: int, nbins: int) -> dict:
     fine_total = int(npts.sum())
     live = has & (y_true < 70.55)
     counts = torch.zeros(len(CLASSES), dtype=torch.int64, device=dev)
-    dmax = int(torch.where(live, lim, 0).max().ceil()) + 1 if n else 0
+    # Each line's reach in points; with the lines in descending order of
+    # it, the lines that can have a sample at offset d (|d - frac| < lim,
+    # |frac| <= 0.5) form a prefix, and each offset evaluates only those.
+    reach = torch.where(live, lim, 0).amax(0)
+    order = torch.argsort(reach, descending=True)
+    reach_sorted = reach[order].cpu().numpy()
+    cols = [t.index_select(1, order) for t in (cidx, frac, repwid, limx,
+                                               y_true, live, p_lo, p_hi)]
+    dmax = int(np.ceil(reach_sorted[0])) + 1 if n else 0
     for d in range(-dmax, dmax + 1):
-        g = cidx + d
-        xi = ((float(d) - frac) * bins.wres) * repwid
-        m = live & (g >= p_lo) & (g <= p_hi) & (xi.abs() < limx)
-        _count(_classes(xi, y_true), m, counts)
+        k = int(np.count_nonzero(reach_sorted >= abs(d) - 1))
+        ci, fr, rw, lx, yt, lv, lo, hi = (t[:, :k] for t in cols)
+        xi = ((float(d) - fr) * bins.wres) * rw
+        m = lv & (ci + d >= lo) & (ci + d <= hi) & (xi.abs() < lx)
+        _count(_classes(xi, yt), m, counts)
     by = dict(zip(CLASSES, counts.tolist()))
     by["lorentz"] = int(torch.where(y_true >= 70.55, npts, 0).sum())
     by["region0"] = fine_total - sum(by[c] for c in CLASSES[1:])
@@ -241,6 +250,36 @@ def census_bins(prep, ranges, bins, *, start_bin: int, nbins: int) -> dict:
     return {"fine_samples": by, "fine_total": fine_total,
             "coarse_total": int(rem.sum()) * 3 * rows,
             "diverging_warp_lines": int(touch.sum())}
+
+
+def k1_bound(prep, ranges, *, num_wpoints: int, fsteps: int, near: int,
+             num_global: int, dw: float, start: int = 0) -> dict:
+    """The census and bound of one K1 launch on the block [start, start +
+    num_wpoints): the lines its tiles reach read once (5 f32 each per
+    row), the column densities read once, tau read and written once."""
+    rows, n_lines = prep.strength.shape
+    cen = census_line_sample(prep, ranges, num_wpoints=num_wpoints,
+                             fsteps=fsteps, near=near, num_global=num_global,
+                             dw=dw, start=start)
+    reached = line_sample_lines_reached(ranges, start, num_wpoints, n_lines)
+    nbytes = 4 * rows * (5 * reached + 1 + 2 * num_wpoints)
+    return dict(bound_ms(cen["samples"], nbytes), census=cen)
+
+
+def k2_bound(prep, ranges, bins, *, start_bin: int, nbins: int) -> dict:
+    """The census and bound of one K2 launch on the bin window: inputs read
+    once, both buffers read and written once, the fine samples by class
+    and every coarse sample at region 0's count (the remote lines lie >= 1
+    cm-1 away: |x| >> 123 at these widths)."""
+    from .gas_optics.bins import NIP
+
+    rows = prep.strength.shape[0]
+    cen = census_bins(prep, ranges, bins, start_bin=start_bin, nbins=nbins)
+    samples = dict(cen["fine_samples"])
+    samples["region0"] += cen["coarse_total"]
+    reached = lines_reached(ranges, start_bin, nbins)
+    nbytes = 4 * rows * (5 * reached + 1 + 2 * nbins * (bins.ppb + NIP))
+    return dict(bound_ms(samples, nbytes), census=cen)
 
 
 # ---------------------------------------------------------------------------

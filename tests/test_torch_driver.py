@@ -401,9 +401,11 @@ def test_port_imports_no_jax():
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert 'h5py' not in sys.modules, 'h5py was imported'\n"
         "assert not any(k.split('.')[0] == 'grtcode_tpu' for k in sys.modules)\n"
+        "assert 'bench' not in sys.modules, 'bench.py was imported'\n"
         "for m in ('bindings.capi_impl', 'parallel.mesh', 'parallel.clear_sky',\n"
         "          'parallel.distributed', 'parallel.dryrun', 'native',\n"
-        "          'utils.metrics', 'utils.debug', 'utils.segments'):\n"
+        "          'utils.metrics', 'utils.debug', 'utils.segments',\n"
+        "          'bench', 'x64_validate'):\n"
         "    assert 'grtcode_tpu_torch.' + m in sys.modules, m\n"
         "import torch.distributed as dist\n"
         "assert not dist.is_initialized(), 'a process group was started'\n"

@@ -9,8 +9,9 @@ unmeshed step and its all_gather, the native .par scanner, the C
 ABI's device selection, its default (the current CUDA device) and
 fluxes on the card, and the library surface on the card: Optics.sample
 (views of the card's tensors, equal to striding) and rayleigh_optics
-against the CPU, and the library path's hand-built step equal to the
-driver's.
+against the CPU, the library path's hand-built step equal to the
+driver's, the headline benchmark's smoke run on the card (a valid JSON
+line, 11 K1 launches a step) and the float64 solver check on the card.
 
 Every test is marked ``gpu`` and skips without a GPU.  The file imports no
 JAX, so it also runs where JAX is not installed; ``tests/conftest.py``
@@ -18,6 +19,8 @@ imports JAX, so run it there with the conftest switched off:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_gpu.py
 """
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -707,3 +710,29 @@ def test_library_step_on_the_card_is_the_driver_step(cuda):
     run = RadiationDriver(lw, sw, sol).run(atm).tiers["csaf"]
     for var in ("rlu", "rld", "rsu", "rsd"):
         assert torch.equal(hand[var], run[var]), var
+
+
+def test_bench_smoke_on_the_card(cuda, capsys):
+    from grtcode_tpu_torch import bench
+
+    vk.accumulate_voigt.launches = 0
+    res = bench.main(["--smoke"], device=cuda)
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert json.loads(line) == res
+    assert res["metric"] == "gridpoints_per_s_per_chip" and res["value"] > 0
+    assert res["device"] == torch.cuda.get_device_name(cuda)
+    for key in ("peak_hbm_gib", "est_tflops", "est_share_of_f32_peak",
+                "kernel_bound_ms_per_step", "compile_first_s"):
+        assert res[key] > 0, key
+    # One untimed and two timed steps of 11 K1 launches each.
+    assert res["kernel_launches_per_step"]["voigt_line_sample"] == 11
+    assert vk.accumulate_voigt.launches == 33
+
+
+def test_x64_validate_on_the_card(cuda, capsys):
+    from grtcode_tpu_torch import x64_validate
+
+    assert x64_validate.main(["--device", str(cuda)]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out[-1].startswith("X64 OK") and len(out) == 21
+    assert all(line.endswith("(torch.float64) ok") for line in out[:-1])
