@@ -14,8 +14,10 @@ LW 0.1, the CIRC app with both SW solvers, the line_sample step over
 segments, the metrics, debug and C ABI modules, the library path
 built by hand from the public imports, the RFMIP-IRF and cloudy ERA5
 apps with their netCDF files read and written by the port's own HDF5 IO,
-and the headline benchmark (grtcode_tpu_torch.bench) with the float64
-solver check, in fifteen phases (one line each):
+the headline benchmark (grtcode_tpu_torch.bench) with the float64
+solver check, and the scatter method (GasOptics(method="scatter"), the
+independent line_sample sum K1 is held to), in sixteen phases (one line
+each):
 
   1. the card: name and power limit as nvidia-smi gives them (on a line
      of their own, then the phase line with the torch / CUDA versions and
@@ -135,7 +137,22 @@ solver check, in fifteen phases (one line each):
      x64_validate on the card (20 float64 comparisons within 3e-8 of the
      f64 reference-C goldens); (d) the bench step on the card against
      the CPU at smoke size, line_sample and the streamed bin method, at
-     the driver golden's 1e-4.
+     the driver golden's 1e-4;
+ 16. the scatter method (gas_optics/optical_depth.py): (a) each band of
+     the full-width model (examples.rfmip_like: LW 366,000 lines on
+     32,491 points at 0.1, SW 64,000 on 50,000 at 1.0) on SCATTER_COLUMNS
+     (4) x 54 rows, by GasOptics(method="scatter") built from the same
+     catalogs and by K1 (11 launches), each timed, with scatter's lines
+     per step and peak memory, and the two band taus' distance; then each
+     molecule's line sum by K1, by scatter in f32 and by scatter summed in
+     float64: K1 within rtol 2e-6 / atol 1e-12 of the float64 sum beyond
+     the f32 scatter's own distance from it (no f32 sum of thousands of
+     lines a point holds 2e-6 of the exact one); (b) a column at T + 300
+     K and p x 2, beyond the line_sample tables' limits: line_sample
+     refuses it, naming method="scatter", and on its bottom rows each
+     molecule's float64 scatter sum on the card equals the CPU's from the
+     same inputs (rtol 2e-6 / atol 1e-12); (c) a RadiationDriver step
+     with both bands on scatter at smoke size, card against CPU at 1e-4.
 
 Prints a kernels JSON line and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero without that line; there is no CPU
@@ -165,6 +182,15 @@ TOL_MESH_COLUMNS = 1e-6
 # Phase 13: the hand-built step against RadiationDriver.run, of each
 # level's largest flux over the columns.
 TOL_LIBRARY = 1e-6
+# Phase 16: the columns of the full-width model on which K1 is held to the
+# scatter sum.  Scatter evaluates every (row, line, offset) sample: 1.8e8
+# samples a row at LW 0.1, so 32 columns take minutes for each sum.
+SCATTER_COLUMNS = 4
+# Phase 16 (b): the hot, dense column (T + 300 K, p x 2, as
+# tests/test_torch_optical_depth.py), and its bottom rows that the CPU
+# also computes.
+HOT_DT, HOT_P = 300.0, 2.0
+HOT_ROWS = {"LW": 1, "SW": 8}
 MESH_TIMEOUT_S = 300.0   # phase 11's process groups, start to end
 BUILD_DIR = os.path.join("build", "chip_smoke")
 REPLACES = "grtcode_tpu/gas_optics/pallas_kernels.py:247"
@@ -2470,6 +2496,240 @@ def phase_bench(info, dev, card):
     return launches
 
 
+def phase_scatter(info, dev, card, columns=SCATTER_COLUMNS):
+    """Phase 16: GasOptics(method="scatter"), the JAX package's line_sample
+    sum with no tables and no near-core split, on the card.
+
+    (a) Each band of the full-width model (examples.rfmip_like: LW 7
+    molecules, 366,000 lines on 32,491 points at 0.1; SW 4, 64,000 on
+    50,000 at 1.0) on ``columns`` x 54 rows: the band's tau by a scatter
+    GasOptics built from the same catalogs and by K1 (line_sample, 11
+    launches), each timed, with scatter's lines per step and peak memory,
+    and K1's distance from it.  Then each molecule's line sum alone, by K1,
+    by scatter in f32 (JAX's order) and by scatter summed in float64.  At
+    thousands of lines a point an f32 sum in any order rounds away wing
+    terms below half an ulp of its partial sum, so K1 is held within
+    TOL_KERNEL of the float64 sum beyond the f32 scatter's own distance
+    from it.  (b) A column at T + 300 K and p x 2: line_sample refuses it,
+    naming method="scatter"; on its bottom rows each molecule's scatter
+    sum, from the same inputs and summed in float64, on the card within
+    TOL_KERNEL of the CPU's, and the lines-only band by scatter GasOptics
+    on both.  (c) A RadiationDriver step with both bands on scatter at
+    smoke size, card against CPU at TOL_GOLDEN.  Returns (K1 launches, K1's
+    worst error against the float64 sums, its worst share of the bar,
+    the band taus' worst share against the f32 scatter)."""
+    import dataclasses
+    import torch
+    from grtcode_tpu_torch import bench, examples
+    from grtcode_tpu_torch.framework.driver import RadiationDriver
+    from grtcode_tpu_torch.gas_optics import optical_depth as od
+    from grtcode_tpu_torch.gas_optics import voigt_kernel as vk
+    from grtcode_tpu_torch.gas_optics.lines import PreparedLines
+
+    f32, f64, cpu = torch.float32, torch.float64, torch.device("cpu")
+    t_phase = time.perf_counter()
+    lw_gas, sw_gas, solar, batch, B, nlayers = examples.rfmip_like(
+        device=dev)
+    bands = {"LW": lw_gas, "SW": sw_gas}
+    cols = bench.slice_batch(batch, 0, columns)
+    rows = columns * nlayers
+
+    def gas_args(gas, b, d):
+        def t32(a):
+            return torch.as_tensor(a, dtype=f32, device=d)
+        return ((t32(b["p_lev"]), t32(b["t_lev"]),
+                 {m: t32(b["vmr"][m]) * 1e-6 for m in gas.molecules}),
+                dict(cfc_vmr={k: t32(v) * 1e-6
+                              for k, v in b["cfc_vmr"].items()},
+                     cia_vmr={k: t32(v) * 1e-6
+                              for k, v in b["cia_vmr"].items()}))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def scatter_sum(gas, prep, ns, dtype):
+        tau = torch.zeros((ns.shape[0], gas.grid.n), dtype=dtype,
+                          device=ns.device)
+        return od.optical_depth_line_sample(prep, ns, gas.grid,
+                                            cutoff=gas.wcutoff,
+                                            chunk=gas.line_chunk, tau0=tau)
+
+    # (a) The main path, with every launch count starting at 0.
+    vk.accumulate_voigt.launches = 0
+    vk.voigt_line_sample_reference.launches = 0
+    runs = {}
+    for label, gas in bands.items():
+        scatter = dataclasses.replace(gas, method="scatter")
+        args, kw = gas_args(gas, cols, dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        tau_sc, sc_s = timed(lambda: scatter.optical_depth(*args, **kw))
+        peak = torch.cuda.max_memory_allocated() - held
+        before = vk.accumulate_voigt.launches
+        tau_k1, k1_s = timed(lambda: gas.optical_depth(*args, **kw))
+        launches = vk.accumulate_voigt.launches - before
+        check(launches == len(gas.molecules), f"{label}: {launches} K1 "
+              f"launches, expected {len(gas.molecules)}")
+        check(tuple(tau_sc.shape) == (columns, nlayers, gas.grid.n),
+              f"{label}: scatter tau shape {tuple(tau_sc.shape)}")
+        check(bool(torch.isfinite(tau_sc).all()), f"{label}: scatter tau "
+              "not finite")
+        check(float(tau_sc.min()) >= 0 and float(tau_sc.max()) > 0,
+              f"{label}: scatter tau not positive")
+        err, share, where = share_of_bound(tau_k1, tau_sc, **TOL_KERNEL)
+        n_lines = sum(g.num_lines for g in gas.molecules.values())
+        runs[label] = dict(
+            rows=rows, padded_lines=n_lines, nw=gas.grid.n,
+            fsteps=gas._fsteps, line_chunk=gas.line_chunk,
+            lines_per_step=od.lines_per_step(rows, gas._fsteps,
+                                             gas.line_chunk),
+            samples=rows * n_lines * (2 * gas._fsteps + 1),
+            scatter_s=sc_s, k1_s=k1_s, scatter_peak_bytes=peak,
+            k1_launches=launches, band_vs_f32_max_abs_err=err,
+            band_vs_f32_share=share, band_vs_f32_where=where)
+        del tau_sc, tau_k1, scatter
+    k1_launches = vk.accumulate_voigt.launches
+
+    # Each molecule's line sum alone, each into its own zeroed buffer.
+    worst_err = worst_share = 0.0
+    for label, gas in bands.items():
+        mols = {}
+        for mol in gas.molecules:
+            prep, ns, kw = band_prep(gas, mol, cols, dev)
+            k1 = vk.accumulate_voigt(
+                prep, ns, gas.chunk_ranges[mol], tau0=torch.zeros(
+                    (rows, gas.grid.n), dtype=f32, device=dev), **kw)
+            s32 = scatter_sum(gas, prep, ns, f32)
+            s64 = scatter_sum(gas, prep, ns, f64)
+            del prep
+            err, share, where = share_of_bound(k1, s64, **TOL_KERNEL)
+            _, own, _ = share_of_bound(s32, s64, **TOL_KERNEL)
+            _, k1_f32, _ = share_of_bound(k1, s32, **TOL_KERNEL)
+            check(share <= 1.0 + own, f"{label} molecule {mol}: K1 is "
+                  f"{share:.3f} of the rtol 2e-6 / atol 1e-12 bar from the "
+                  f"float64 scatter sum (max abs err {err:.3e} {where}); "
+                  f"the f32 scatter is {own:.3f}")
+            mols[mol] = dict(k1_vs_f64=share, k1_max_abs_err=err,
+                             f32_scatter_vs_f64=own, k1_vs_f32=k1_f32)
+            worst_err, worst_share = max(worst_err, err), max(worst_share,
+                                                              share)
+            del k1, s32, s64
+        runs[label]["molecules"] = mols
+    torch.cuda.empty_cache()
+
+    # (b) Beyond the line_sample tables' limits.
+    one = bench.slice_batch(batch, 0, 1)
+    hot_col = dict(one, p_lev=one["p_lev"] * HOT_P,
+                   t_lev=one["t_lev"] + HOT_DT)
+    hot = {}
+    for label, gas in bands.items():
+        args, kw = gas_args(gas, hot_col, dev)
+        try:
+            gas.optical_depth(*args, **kw)
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        check(refused is not None and 'method="scatter"' in refused,
+              f"{label}: line_sample on the hot column: {refused!r}")
+        n = HOT_ROWS[label] + 1
+        bottom = {k: ({m: a[:, -n:] for m, a in v.items()}
+                      if isinstance(v, dict) else v[:, -n:])
+                  for k, v in hot_col.items() if k not in ("mu", "tsi")}
+        # The lines-only band in f32, each device in its own order.
+        band, secs = [], []
+        for d in (dev, cpu):
+            lines_only = dataclasses.replace(
+                gas, method="scatter", device=d, h2o_ctm=None, o3_ctm=None,
+                cfcs={}, cias=[])
+            t0 = time.perf_counter()
+            band.append(lines_only.optical_depth(*gas_args(gas, bottom,
+                                                           d)[0]).cpu())
+            secs.append(time.perf_counter() - t0)
+        check(bool(torch.isfinite(band[0]).all())
+              and float(band[1].max()) > 0,
+              f"{label}: hot scatter not finite or all zero")
+        _, band_share, _ = share_of_bound(band[0], band[1], **TOL_KERNEL)
+        # Each molecule from the same inputs (prepared on the CPU), summed
+        # in float64 on both.
+        mol_share = mol_err = 0.0
+        for mol in gas.molecules:
+            prep, ns, _ = band_prep(gas, mol, bottom, cpu)
+            sums = [scatter_sum(gas, PreparedLines(
+                *(t.to(d) for t in dataclasses.astuple(prep))), ns.to(d),
+                f64).cpu() for d in (dev, cpu)]
+            err, share, where = share_of_bound(*sums, **TOL_KERNEL)
+            check(share <= 1.0, f"{label} molecule {mol}, hot rows: "
+                  f"scatter on the card vs the CPU exceeds rtol 2e-6 / "
+                  f"atol 1e-12 (max abs err {err:.3e}, {share:.3f} of the "
+                  f"bound {where})")
+            mol_share, mol_err = max(mol_share, share), max(mol_err, err)
+        hot[label] = dict(rows=HOT_ROWS[label], f64_worst_share=mol_share,
+                          f64_max_abs_err=mol_err, f32_band_share=band_share,
+                          card_s=secs[0], cpu_s=secs[1],
+                          tau_max=float(band[1].max()))
+    del lw_gas, sw_gas, solar, batch, bands
+    torch.cuda.empty_cache()
+
+    # (c) The driver with both bands on scatter, card against CPU.
+    before = vk.accumulate_voigt.launches
+    outs = []
+    for d in (dev, cpu):
+        lw, sw, sol, b, _, _ = examples.rfmip_like(smoke=True, device=d)
+        driver = RadiationDriver(dataclasses.replace(lw, method="scatter"),
+                                 dataclasses.replace(sw, method="scatter"),
+                                 sol)
+        res = driver.run(examples.atmosphere(b), integrated=True)
+        outs.append({k: v.cpu().numpy() for k, v in res.tiers["csaf"].items()})
+    check(vk.accumulate_voigt.launches == before,
+          "K1 launched in the scatter driver step")
+    driver_err = {}
+    for var in ("rlu", "rld", "rsu", "rsd"):
+        got, want = outs[0][var], outs[1][var]
+        check(np.isfinite(got).all(), f"scatter driver {var}: not finite")
+        driver_err[var] = worst_rel(got, want)
+        check(driver_err[var] <= TOL_GOLDEN, f"scatter driver {var}: card "
+              f"vs CPU {driver_err[var]:.2e} > {TOL_GOLDEN}")
+    plain = vk.voigt_line_sample_reference.launches
+    check(plain == 0, f"K1's plain version ran {plain} times in phase 16")
+    phase_s = time.perf_counter() - t_phase
+
+    band_share = max(r["band_vs_f32_share"] for r in runs.values())
+    info["phase16"] = dict(card=card, columns=columns, bands=runs, hot=hot,
+                           driver_vs_cpu=driver_err,
+                           k1_launches=k1_launches, phase_s=phase_s)
+    parts = []
+    for k, r in runs.items():
+        m = r["molecules"].values()
+        parts.append(
+            f"{k} {r['rows']} rows x {r['padded_lines']} padded lines x "
+            f"{r['nw']} points ({r['samples']:.3e} samples): scatter "
+            f"{r['scatter_s']:.2f} s (line chunk {r['line_chunk']}, "
+            f"{r['lines_per_step']} lines per step, peak "
+            f"{r['scatter_peak_bytes'] / 2 ** 30:.2f} GiB) vs K1 "
+            f"{r['k1_s']:.3f} s ({r['k1_launches']} launches); band tau, K1 "
+            f"vs f32 scatter {r['band_vs_f32_share']:.3f} of the bar "
+            f"({r['band_vs_f32_where']}); per molecule against the float64 "
+            f"sum: K1 at most {max(v['k1_vs_f64'] for v in m):.3f}, the f32 "
+            f"scatter {max(v['f32_scatter_vs_f64'] for v in m):.3f}, K1 vs "
+            f"f32 scatter {max(v['k1_vs_f32'] for v in m):.3f}")
+    parts += [f"hot {k} ({h['rows']} rows, tau max {h['tau_max']:.3e}) card "
+              f"vs CPU: float64 sums {h['f64_worst_share']:.3f} of the bar, "
+              f"f32 band {h['f32_band_share']:.3f} (card {h['card_s']:.2f} "
+              f"s, CPU {h['cpu_s']:.2f} s)" for k, h in hot.items()]
+    print(f"phase 16 scatter ({card}), {columns} of 32 columns: "
+          + "; ".join(parts) + "; line_sample refuses the hot column, "
+          "naming method=\"scatter\"; scatter driver step card vs CPU "
+          "worst rel " + ", ".join(f"{k} {v:.2e}"
+                                   for k, v in driver_err.items())
+          + f" <= {TOL_GOLDEN}; phase {phase_s:.1f} s", flush=True)
+    return k1_launches, worst_err, worst_share, band_share
+
+
 def driver_layers(era5_path):
     """Layers of an ERA5 file's columns (its levels less one)."""
     from grtcode_tpu_torch.utils import ncio
@@ -2514,6 +2774,9 @@ def main():
         launches14, err14 = phase_apps_io(info, dev, info["card"], app_dir)
     torch.cuda.empty_cache()
     launches15 = phase_bench(info, dev, info["card"])
+    torch.cuda.empty_cache()
+    launches16, err16, share16, band16 = phase_scatter(info, dev,
+                                                       info["card"])
     check("jax" not in sys.modules, "JAX was imported")
     check("h5py" not in sys.modules, "h5py was imported")
     info["seconds"] = time.perf_counter() - t0
@@ -2524,8 +2787,11 @@ def main():
     # K1 runs on every path (all 11 molecules at 0.1, the 4 SW molecules
     # in each block of the streamed one, 18 per all-sky step, 14 per CIRC
     # run, 11 per rank on a mesh, the segments', phase 12's and phase 13's
-    # steps, phase 14's RFMIP-IRF and ERA5 apps, phase 15's bench runs);
-    # its launches are the nine counts.  K2 runs on phase 8's streamed
+    # steps, phase 14's RFMIP-IRF and ERA5 apps, phase 15's bench runs,
+    # phase 16's bands beside scatter); its launches are the ten counts.
+    # Its scatter_* keys (phase 16): its worst against the float64 scatter
+    # sum by molecule (error, share of the bar) and, the band's tau, against
+    # the f32 scatter GasOptics.  K2 runs on phase 8's streamed
     # steps and phase 15's bin-method bench.
     # No PyTorch call computes a Voigt sum over a line list: library_ms is
     # null for both.
@@ -2534,10 +2800,12 @@ def main():
          "replaces": REPLACES,
          "launches": k1_launches + launches8["voigt_line_sample"]
          + launches9 + launches10 + launches11 + launches12 + launches13
-         + launches14 + launches15["voigt_line_sample"],
+         + launches14 + launches15["voigt_line_sample"] + launches16,
          "max_abs_err": max(err3, err5, err10, err14), "ms": o2["ms"],
          "plain_ms": o2["plain_ms_mean"], "bound_ms": o2["bound_ms"],
-         "bound_by": o2["bound_by"], "library_ms": None},
+         "bound_by": o2["bound_by"], "library_ms": None,
+         "scatter_max_abs_err": err16, "scatter_worst_share": share16,
+         "scatter_f32_band_share": band16},
         {"name": "voigt_bins", "route": "cuda", "source": SOURCE_K2,
          "replaces": REPLACES_K2,
          "launches": launches8["voigt_bins"] + launches15["voigt_bins"],

@@ -4,9 +4,10 @@ grtcode_tpu/gas_optics/gas_optics.py).
 Absorbers are registered once on the host (data loading, grid binding,
 per-tile and per-bin line-range tables); :meth:`GasOptics.optical_depth`
 is the device forward pass: Curtis-Godson prep -> per-molecule line prep
-and the line_sample or bin Voigt kernel -> continua -> CFC -> CIA -> (bin
-methods) the wing interpolation.  The (batch, layer) plane flattens into
-one "rows" axis, so the whole batch is one kernel launch per molecule.
+and the line_sample or bin Voigt kernel (or the scatter sum) -> continua
+-> CFC -> CIA -> (bin methods) the wing interpolation.  The (batch, layer)
+plane flattens into one "rows" axis, so the whole batch is one kernel
+launch per molecule.
 """
 from __future__ import annotations
 
@@ -28,12 +29,14 @@ from .bins_kernel import accumulate_bins_kernel
 from .continua import OzoneContinuum, WaterVaporContinuum
 from .hitran import LineCatalog, parse_par_file
 from .molecules import MoleculeId
+from .optical_depth import optical_depth_line_sample
 from .voigt_kernel import accumulate_voigt, build_chunk_ranges
 from .xsec import (CrossSectionTable, cfc_optical_depth,
                    cia_optical_depth)
 
-_SAMPLING_METHODS = ("tiled", "line_sample")
+_K1_METHODS = ("tiled", "line_sample")   # K1 and its tables
 _BIN_METHODS = ("wavenumber_sweep", "line_sweep")
+_METHODS = _K1_METHODS + ("scatter",) + _BIN_METHODS
 # torch.profiler range around each molecule's line prep, so a trace shows
 # what the per-block recomputation of a streamed step costs.
 LINE_PREP_RANGE = "grtcode::line_prep"
@@ -51,7 +54,9 @@ class GasOptics:
     tips: object = None
     line_chunk: int = 1024   # catalogs pad to a multiple of this
     # "tiled" / "line_sample": exact per-point sampling over the +-cutoff
-    # window (the reference driver's production method).
+    # window (the reference driver's production method), by K1.
+    # "scatter": the same sum, each line's window added with index_add_
+    # (the ground truth K1 is held to; no temperature or pressure limit).
     # "wavenumber_sweep": bin sweep, wings at 3 points per bin,
     # quadratically interpolated (kernels.c:177-304).
     # "line_sweep": per-line local window + binned wings
@@ -72,9 +77,9 @@ class GasOptics:
         self.device = torch.device(self.device)
         if self.tips is None:
             self.tips = tips_mod.default_tips()
-        if self.method not in _SAMPLING_METHODS + _BIN_METHODS:
+        if self.method not in _METHODS:
             raise ValueError(f"method {self.method!r}: expected one of "
-                             f"{_SAMPLING_METHODS + _BIN_METHODS}")
+                             f"{_METHODS}")
         if not (constants.MIN_LINE_CUTOFF <= self.wcutoff
                 <= constants.MAX_LINE_CUTOFF):
             raise ValueError(f"cutoff {self.wcutoff} outside allowed range")
@@ -230,7 +235,7 @@ class GasOptics:
 
         tau = torch.zeros((rows, nw), dtype=f32, device=self.device)
         bin_method = self.method in _BIN_METHODS
-        if not bin_method:
+        if self.method in _K1_METHODS:
             # The line_sample tables (near core, zones, shift margins) hold
             # only up to these limits; beyond them a sample would silently
             # take the wrong Humlicek region.
@@ -239,7 +244,8 @@ class GasOptics:
                 raise ValueError(
                     f"layer temperature {t_max} K or pressure {p_max} atm "
                     f"beyond the line_sample tables' limits "
-                    f"({lines_mod.TMAX_K} K, {lines_mod.PMAX_ATM} atm)")
+                    f"({lines_mod.TMAX_K} K, {lines_mod.PMAX_ATM} atm); "
+                    f'method="scatter" computes such rows')
         if bin_method:
             # The block is a whole number of bin groups and needs nothing
             # outside itself: every fine point and coarse triple of its
@@ -267,6 +273,11 @@ class GasOptics:
                     prep, ns, self._get_bin_ranges(mol_id), self.bins,
                     start_bin=start_bin, nbins=nbins, tau0=tau_bins,
                     bins_tau0=bins_tau)
+            elif self.method == "scatter":
+                optical_depth_line_sample(
+                    prep, ns, self.grid, cutoff=self.wcutoff,
+                    chunk=self.line_chunk, tau0=tau, start=start,
+                    block=None if block_size is None else nw)
             else:
                 accumulate_voigt(prep, ns, self.chunk_ranges[mol_id],
                                  num_wpoints=nw, dw=float(self.grid.dw),

@@ -196,12 +196,16 @@ def voigt_line_sample_reference(prep: PreparedLines, ns, *, num_wpoints: int,
                                 dw: float, fsteps: int, near: int,
                                 num_global: int, tau0=None, start: int = 0,
                                 chunk: int = 64):
-    """The plain PyTorch version: the port of the JAX package's
-    ``optical_depth.accumulate_line_sample``.  Lines stream in chunks; each
-    line's window of ``2*fsteps + 1`` points is evaluated and added with
-    ``index_add_``.  The window's near core (``|offset| <= near``) takes
-    the full five-region ``voigt_line_shape`` and the rest the
-    regions-0/1 ``voigt_far_wing``, which is the same function there.
+    """The plain PyTorch version of K1, with K1's near-core split: the
+    JAX package's tiled path (``accumulate_tiled`` with ``far_kernel`` plus
+    ``accumulate_near_pointwise``), not its scatter sum
+    (:mod:`.optical_depth`).  Lines stream in chunks; each line's window
+    of ``2*fsteps + 1`` points is evaluated and added with ``index_add_``.
+    The window's near core (``|offset| <= near``) takes the full
+    five-region ``voigt_line_shape`` and the rest the regions-0/1
+    ``voigt_far_wing``, which is the same function there only inside the
+    tables' limits (``lines.TMAX_K``, ``lines.PMAX_ATM``).  Points past
+    ``num_global`` receive nothing.
 
     Adds into ``tau0`` (rows, num_wpoints) in place and returns it.
     """

@@ -63,10 +63,9 @@ SURFACE_EXCLUDED = {
     # gas_optics/voigt_kernel.py and gas_optics/bins_kernel.py.
     "gas_optics/pallas_kernels.py": "module",
     "gas_optics/bins_pallas.py": "module",
-    # JAX's portable line_sample: covered by
-    # voigt_kernel.voigt_line_sample_reference.
-    "gas_optics/optical_depth.py": "module",
     # The TPU tile layout, which K1's zone tables replace.
+    "gas_optics/optical_depth.py:accumulate_tiled": "name",
+    "gas_optics/optical_depth.py:accumulate_near_pointwise": "name",
     "gas_optics/lines.py:LineTiles": "name",
     "gas_optics/lines.py:PointRanges": "name",
     "gas_optics/lines.py:build_tiles": "name",

@@ -251,12 +251,10 @@ def test_segment_manifest_resume(tmp_path):
 
 
 # JAX modules whose work the port does under another name: the two Pallas
-# kernels' modules (their CUDA counterparts and dispatchers) and the
-# portable line_sample path (the dispatcher's plain version).
+# kernels' modules (their CUDA counterparts and dispatchers).
 COVERED_BY = {
     "gas_optics/pallas_kernels.py": "gas_optics/voigt_kernel.py",
     "gas_optics/bins_pallas.py": "gas_optics/bins_kernel.py",
-    "gas_optics/optical_depth.py": "gas_optics/voigt_kernel.py",
 }
 
 

@@ -11,7 +11,10 @@ fluxes on the card, and the library surface on the card: Optics.sample
 (views of the card's tensors, equal to striding) and rayleigh_optics
 against the CPU, the library path's hand-built step equal to the
 driver's, the headline benchmark's smoke run on the card (a valid JSON
-line, 11 K1 launches a step) and the float64 solver check on the card.
+line, 11 K1 launches a step), the float64 solver check on the card, and
+the scatter method: on the card against the CPU (also beyond the
+line_sample tables' limits and on a block past the grid end), and K1
+against it on the card.
 
 Every test is marked ``gpu`` and skips without a GPU.  The file imports no
 JAX, so it also runs where JAX is not installed; ``tests/conftest.py``
@@ -736,3 +739,59 @@ def test_x64_validate_on_the_card(cuda, capsys):
     out = capsys.readouterr().out.strip().splitlines()
     assert out[-1].startswith("X64 OK") and len(out) == 21
     assert all(line.endswith("(torch.float64) ok") for line in out[:-1])
+
+
+def _scatter_gas(device, method, hot=False, B=3, nlev=7):
+    """tests/test_tiled.py's catalog (300 lines, some centred off the
+    100-400 cm-1 grid at 0.1) in a GasOptics on ``device``, and B columns
+    (``hot``: T + 300 K and p x 2, beyond the line_sample tables)."""
+    from grtcode_tpu_torch.gas_optics.gas_optics import GasOptics
+
+    rng = np.random.default_rng(3)
+    n = 300
+    gas = GasOptics(SpectralGrid(100.0, 400.0, 0.1), line_chunk=64,
+                    method=method, device=device)
+    gas.add_catalog(synthetic_catalog(
+        1, np.sort(rng.uniform(80.0, 420.0, n)), rng.uniform(1e-22, 1e-19, n),
+        yair=rng.uniform(0.02, 0.1, n), yself=rng.uniform(0.05, 0.4, n),
+        en=rng.uniform(0.0, 2000.0, n), n=rng.uniform(0.4, 0.8, n),
+        d=rng.uniform(-0.02, 0.02, n)))
+    p = np.linspace(0.01, 1013.0, nlev)[None, :] * np.ones((B, 1))
+    t = np.linspace(215.0, 288.0, nlev)[None, :] + \
+        rng.uniform(-3, 3, (B, nlev))
+    if hot:
+        p, t = p * 2.0, t + 300.0
+    return gas, (p, t, {1: rng.uniform(1e-5, 1e-2, (B, nlev))})
+
+
+@pytest.mark.parametrize("hot,block", [(False, None), (False, (2944, 128)),
+                                       (True, None)])
+def test_scatter_on_the_card_matches_the_cpu(cuda, hot, block):
+    """index_add_ adds with atomics on the card, in no fixed order."""
+    kw = {} if block is None else dict(block_start=block[0],
+                                       block_size=block[1])
+    outs = []
+    for device in (cuda, torch.device("cpu")):
+        gas, args = _scatter_gas(device, "scatter", hot)
+        outs.append(gas.optical_depth(*args, **kw).cpu().numpy())
+    got, want = outs
+    assert got.shape == want.shape and np.isfinite(got).all()
+    assert want.max() > 1.0
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+def test_kernel_matches_scatter_on_the_card(cuda):
+    """K1 (line_sample) against the scatter sum, which shares neither its
+    near-core split nor its tables."""
+    k1, args = _scatter_gas(cuda, "line_sample")
+    scatter, _ = _scatter_gas(cuda, "scatter")
+    launches = vk.accumulate_voigt.launches
+    got = k1.optical_depth(*args)
+    want = scatter.optical_depth(*args)
+    assert vk.accumulate_voigt.launches == launches + 1
+    assert float(want.max()) > 1.0
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+    hot_args = _scatter_gas(cuda, "line_sample", hot=True)[1]
+    with pytest.raises(ValueError, match='method="scatter"'):
+        k1.optical_depth(*hot_args)
