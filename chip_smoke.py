@@ -15,9 +15,14 @@ segments, the metrics, debug and C ABI modules, the library path
 built by hand from the public imports, the RFMIP-IRF and cloudy ERA5
 apps with their netCDF files read and written by the port's own HDF5 IO,
 the headline benchmark (grtcode_tpu_torch.bench) with the float64
-solver check, and the scatter method (GasOptics(method="scatter"), the
-independent line_sample sum K1 is held to), in sixteen phases (one line
-each):
+solver check, the scatter method (GasOptics(method="scatter"), the
+independent line_sample sum K1 is held to), and the captured steps, in
+seventeen phases (one line each).  Every driver and bench step on the
+card runs eagerly at the first call of its key (its warm-up), is captured
+as a CUDA graph at the second and is replayed after that
+(grtcode_tpu_torch/utils/graphs.py); the profiled steps, which read the
+line-prep, cloud-optics and DISORT ranges, run eagerly under
+debug.disable_jit:
 
   1. the card: name and power limit as nvidia-smi gives them (on a line
      of their own, then the phase line with the torch / CUDA versions and
@@ -118,9 +123,13 @@ each):
      examples.write_rfmip_input) written by the port, apps.rfmip.main on
      phase 10's .par and tables at the default grids, experiment 0 over
      all sites (6,000 rows), -integrated -o: wall time with the parses
-     apart, the step, the peak; 21 K1 launches (7 LW + 7 SW for the lit
-     sites, 7 LW for the 20 night sites) and no plain launch; the file read
-     back equal to the run's fluxes bit for bit; K1 against its plain
+     apart, the step, the peak; 14 K1 launches (7 LW + 7 SW: the 80 lit
+     sites' bucket is the whole batch, so it runs with the day mask, as
+     in JAX) and no plain launch; the file read
+     back equal to the run's fluxes bit for bit; the app's one run is
+     the step's eager warm-up: a second run captures its graph and a
+     third replays it, each equal to the app's fluxes bit for bit, the
+     process reserving at most 1.15x what the app reserved; K1 against its plain
      version on LW O2 at the 6,000 rows (rtol 2e-6, atol 1e-12); (c) the
      cloudy ERA5 app (-sw, -liquid-path / -ice-path tables written by the
      port) on a 1 x 8 x 16-column, 37-level snapshot
@@ -152,7 +161,24 @@ each):
      refuses it, naming method="scatter", and on its bottom rows each
      molecule's float64 scatter sum on the card equals the CPU's from the
      same inputs (rtol 2e-6 / atol 1e-12); (c) a RadiationDriver step
-     with both bands on scatter at smoke size, card against CPU at 1e-4.
+     with both bands on scatter at smoke size, card against CPU at 1e-4;
+ 17. the captured steps, read inside phases 5, 8, 9, 10 and 15 for each
+     of their paths (the driver at 0.1, streamed at 0.01, all-sky, CIRC
+     two-stream and 16-stream DISORT, both bench configurations): graph,
+     from empty caches, the eager warm-up step and the step that captures,
+     then graph, eager (debug.disable_jit), graph in turns, each timed;
+     the replays bit-identical to the eager step (DISORT may instead hold
+     the golden's 1e-4, cuBLAS and cuSOLVER choosing their algorithms at
+     capture); no new capture; the K1 / K2 launches of a replayed step
+     equal the eager step's; a profiled replay (busy, idle); no
+     host-device sync inside a replay, and those of the whole step;
+     warm-up and capture seconds; the memory the warm-up and the capture
+     reserve (torch.cuda.max_memory_reserved, the allocator as the user
+     has it) at most 1.15x what the eager step reserves.  Phase 14's
+     RFMIP-IRF step is read in phase 14: the app's run is its warm-up,
+     and a second run captures and a third replays, each bit-identical to
+     the app's fluxes, the capture's reserve at most 1.15x the app's
+     step's.
 
 Prints a kernels JSON line and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero without that line; there is no CPU
@@ -219,21 +245,27 @@ def share_of_bound(got, want, rtol, atol):
     return float(err.max()), float(share.max()), where
 
 
-def profile_step(step):
+def profile_step(step, eager=True):
     """Device time of one profiled step by kernel (torch.profiler): each
     CUDA kernel of the port's own and its share of the busy time, the
     kernels launched inside the cloud-optics and DISORT ranges, the
-    device's idle share of the step's wall time, and the top kernels."""
+    device's idle share of the step's wall time, and the top kernels.
+    The ranges are recorded only where the step's Python code runs, so
+    the step runs eagerly (debug.disable_jit) unless ``eager`` is False
+    (a replayed graph: kernels, busy and idle time, no ranges)."""
+    import contextlib
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from grtcode_tpu_torch.framework.driver import (CLOUD_OPTICS_RANGE,
                                                     DISORT_RANGE)
     from grtcode_tpu_torch.gas_optics.gas_optics import LINE_PREP_RANGE
+    from grtcode_tpu_torch.utils import debug
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, \
+            (debug.disable_jit() if eager else contextlib.nullcontext()):
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
@@ -331,6 +363,197 @@ def count_syncs(step):
         f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
         if "synchroniz" in str(w.message))
     return sum(where.values()), where.most_common(8)
+
+
+def _flat(out):
+    """The tensors of a step's result (FluxResults, dict or tuple) in a
+    fixed order, by name."""
+    import torch
+    if hasattr(out, "tiers"):
+        out = out.tiers
+    if isinstance(out, torch.Tensor):
+        return {"": out}
+    items = out.items() if isinstance(out, dict) else enumerate(out)
+    flat = {}
+    for k, v in items:
+        for sub, t in _flat(v).items():
+            flat[f"{k}/{sub}" if sub else str(k)] = t
+    return flat
+
+
+def replay_syncs(step):
+    """(host-device synchronisations inside the graph replays of one
+    ``step()``, in the whole step, the whole step's sites): the replays'
+    copies in, graph launches and clones out are watched apart."""
+    import warnings
+    import torch
+    from grtcode_tpu_torch.utils import graphs
+
+    call = graphs.CapturedStep.__call__
+    inside = []
+
+    def watched(self, inputs):
+        outer = torch.cuda.get_sync_debug_mode()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return call(self, inputs)
+            finally:
+                torch.cuda.set_sync_debug_mode(outer)
+                inside.extend(w for w in caught
+                              if "synchroniz" in str(w.message))
+
+    graphs.CapturedStep.__call__ = watched
+    try:
+        outside, sites = count_syncs(step)
+    finally:
+        graphs.CapturedStep.__call__ = call
+    return len(inside), outside + len(inside), sites
+
+
+def graph_turns(info, name, step, caches, tol=None):
+    """Phase 17's reading of one path, taken in its own phase: ``step()``
+    runs one step through the StepCaches ``caches``.  From empty caches:
+    the warm-up step (eager) and the step that captures and replays, with
+    the memory they reserve; then in turns: replay, the eager step
+    (debug.disable_jit), replay; the replays bit-identical to the eager
+    step (or, with ``tol`` = (bar, reason), within the path's golden bar
+    for the reason given); no new capture; the K1 / K2 launches of each
+    replayed step equal the eager step's; one more replay with its host
+    syncs counted (none inside a replay).  The memory the warm-up and the
+    capture reserve, at most 1.15x what the eager step reserves."""
+    import torch
+    from grtcode_tpu_torch.gas_optics import bins_kernel as bk
+    from grtcode_tpu_torch.gas_optics import voigt_kernel as vk
+    from grtcode_tpu_torch.utils import debug
+
+    def entries():
+        return [e for c in caches for e in c.entries.values()]
+
+    def run(eager):
+        before = (vk.accumulate_voigt.launches,
+                  bk.accumulate_bins_kernel.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if eager:
+            with debug.disable_jit():
+                out = step()
+        else:
+            out = step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        return (_flat(out), dt, (vk.accumulate_voigt.launches - before[0],
+                                 bk.accumulate_bins_kernel.launches
+                                 - before[1]))
+
+    def reserving():
+        """Reset the peaks with the allocator's cache given back: (the
+        bytes reserved, allocated) now."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+
+    for cache in caches:
+        cache.clear()
+    res0, alloc0 = reserving()
+    _, warm_s, _ = run(False)            # the warm-up, eagerly
+    check(not entries(), f"phase 17 {name}: a graph at the first call")
+    _, capture_run_s, _ = run(False)     # captures and replays
+    graph_res = torch.cuda.max_memory_reserved() - res0
+    graph_peak = torch.cuda.max_memory_allocated() - alloc0
+    n_entries = len(entries())
+    check(n_entries > 0, f"phase 17 {name}: no captured graph")
+    g1, tg1, lg1 = run(False)
+    res0, alloc0 = reserving()
+    eager, te, le = run(True)
+    eager_res = torch.cuda.max_memory_reserved() - res0
+    eager_peak = torch.cuda.max_memory_allocated() - alloc0
+    g2, tg2, lg2 = run(False)
+    check(len(entries()) == n_entries, f"phase 17 {name}: a replay "
+          f"captured again ({n_entries} -> {len(entries())} graphs)")
+    check(lg1 == lg2 == le, f"phase 17 {name}: K1 / K2 launches per "
+          f"replayed step {lg1}, {lg2}, per eager step {le}")
+    check(list(g2) == list(eager), f"phase 17 {name}: outputs differ")
+    same = all(torch.equal(g1[k], eager[k]) and torch.equal(g2[k], eager[k])
+               for k in eager)
+    worst = 0.0
+    if not same:
+        check(tol is not None, f"phase 17 {name}: the replay is not "
+              "bit-identical to the eager step")
+        worst = max(worst_rel(g[k].cpu().numpy(), eager[k].cpu().numpy())
+                    for g in (g1, g2) for k in eager)
+        check(worst < tol[0], f"phase 17 {name}: replay vs eager worst rel "
+              f"{worst:.2e} >= {tol[0]} ({tol[1]})")
+    replay_profile = profile_step(step, eager=False)
+    inside, whole, sites = replay_syncs(step)
+    check(inside == 0, f"phase 17 {name}: {inside} host syncs inside the "
+          "replays")
+    ratio = graph_res / eager_res
+    check(ratio <= 1.15, f"phase 17 {name}: the warm-up and the capture "
+          f"reserve {graph_res / 2 ** 30:.2f} GiB, the eager step "
+          f"{eager_res / 2 ** 30:.2f} GiB")
+    got = dict(graph_ms=500.0 * (tg1 + tg2), eager_ms=1e3 * te,
+               graph_s=[tg1, tg2], eager_s=te, warmup_s=warm_s,
+               capture_run_s=capture_run_s,
+               capture_s=sum(e.capture_s for e in entries()),
+               graphs=n_entries, reserved_gib=graph_res / 2 ** 30,
+               eager_reserved_gib=eager_res / 2 ** 30, reserved_ratio=ratio,
+               peak_gib=graph_peak / 2 ** 30,
+               eager_peak_gib=eager_peak / 2 ** 30,
+               launches_per_step=list(lg2), bit_identical=same,
+               worst_rel=worst, tol=None if tol is None else list(tol),
+               replay_syncs=inside, step_syncs=whole, sync_sites=sites,
+               replay_profile=replay_profile)
+    info.setdefault("phase17", {})[name] = got
+    print(f"phase 17 reading, {_turns_line(name, got)}", flush=True)
+    return got
+
+
+def _turns_line(name, r):
+    """One path's phase 17 reading as text."""
+    prof = r["replay_profile"]
+    return (
+        f"{name}: graph {r['graph_ms']:.1f} ms/step, eager "
+        f"{r['eager_ms']:.1f} ({r['eager_ms'] / r['graph_ms']:.2f}x), "
+        f"warm-up step {r['warmup_s']:.2f} s, {r['graphs']} graphs captured "
+        f"in {r['capture_s']:.2f} s (capturing step {r['capture_run_s']:.2f}"
+        f" s), reserved {r['reserved_gib']:.2f} GiB vs eager "
+        f"{r['eager_reserved_gib']:.2f} ({r['reserved_ratio']:.3f}x), peak "
+        f"{r['peak_gib']:.2f} GiB vs eager {r['eager_peak_gib']:.2f}, "
+        + ("bit-identical" if r["bit_identical"] else
+           f"worst rel {r['worst_rel']:.2e} < {r['tol'][0]} ({r['tol'][1]})")
+        + f", K1/K2 {r['launches_per_step']} a step, replay "
+        + (f"busy {prof['busy_ms']:.1f} ms, idle {prof['idle_share']:.1%}"
+           if "busy_ms" in prof else "profile not measured")
+        + f", host syncs {r['replay_syncs']} inside the replays and "
+        f"{r['step_syncs']} in the whole step")
+
+
+def phase_graphs(info, card):
+    """Phase 17: the captured steps.  Each path of phases 5, 8, 9, 10 and
+    15 was read by graph_turns in its own phase (graph and eager in turns,
+    bit-identity, launches, host syncs, memory reserved), and phase 14's
+    RFMIP-IRF step there; this phase checks that every path was read and
+    prints them on one line."""
+    want = ("driver 0.1", "driver streamed 0.01", "all-sky",
+            "CIRC two-stream", "CIRC DISORT", "bench defaults",
+            "bench 0.01")
+    got = info.get("phase17", {})
+    check(sorted(got) == sorted(want), f"phase 17: paths read "
+          f"{tuple(got)}, expected {want}")
+    lines = [_turns_line(n, got[n]) for n in want]
+    app = info.get("phase14", {}).get("rfmip")
+    if app is not None:
+        g, gib = app["graph"], 2 ** 30
+        lines.append(
+            f"RFMIP-IRF app (phase 14): eager step {app['step_s']:.3f} s, "
+            f"graph capturing run {g['capture_run_s']:.3f} s, replay "
+            f"{g['replay_s']:.3f} s, reserved {g['reserved_bytes'] / gib:.2f}"
+            f" GiB vs the app's {app['reserved_bytes'] / gib:.2f} GiB")
+    print(f"phase 17 captured steps ({card}): " + "; ".join(lines),
+          flush=True)
 
 
 def phase_card(info):
@@ -567,10 +790,12 @@ def phase_full_width(info, dev, card):
     check(rel < 1e-4, f"rsd at TOA vs tsi*mu: rel err {rel:.2e}")
     check(bool((res["rlu"][:, 0] > 0).all()), "OLR not positive")
 
-    ms = 1e3 * float(np.mean(step_s[1:]))
+    ms = 1e3 * float(np.mean(step_s[2:]))   # after warm-up, capture
     rows = B * nlayers
     points = rows * (lw_gas.grid.n + sw_gas.grid.n)
     rate = points / (ms / 1e3)
+    graph_turns(info, "driver 0.1", lambda: driver.run(atm, integrated=True),
+                [driver._step_cache])
     breakdown = profile_step(lambda: driver.run(atm, integrated=True))
 
     # The kernel against the plain version at the main path's shapes: one
@@ -875,6 +1100,7 @@ def phase_streamed_bins(info, dev, card):
     from grtcode_tpu_torch.gas_optics import bins as bm
     from grtcode_tpu_torch.gas_optics import bins_kernel as bk
     from grtcode_tpu_torch.gas_optics import voigt_kernel as vk
+    from grtcode_tpu_torch.utils import debug
 
     S = 10
     t0 = time.perf_counter()
@@ -931,12 +1157,18 @@ def phase_streamed_bins(info, dev, card):
     check(rel < 1e-4, f"rsd at TOA vs tsi*mu: rel err {rel:.2e}")
     check(bool((res["rlu"][:, 0] > 0).all()), "OLR not positive")
 
-    ms = 1e3 * float(np.mean(step_s[1:]))
+    ms = 1e3 * float(np.mean(step_s[2:]))   # after warm-up, capture
     rows = B * nlayers
     points = rows * (lw_gas.grid.n + sw_gas.grid.n)
     rate = points / (ms / 1e3)
+    graph_turns(info, "driver streamed 0.01", step, [driver._step_cache])
     breakdown = profile_step(step)
-    syncs, sync_sites = count_syncs(step)
+
+    def eager_step():
+        with debug.disable_jit():
+            return step()
+
+    syncs, sync_sites = count_syncs(eager_step)
     size_lw = -(-(-(-lw_gas.grid.n // S)) // lw_gas.block_quantum) * \
         lw_gas.block_quantum
     o2 = bin_full_rows_vs_plain(lw_gas, 7, batch, dev,
@@ -1118,10 +1350,11 @@ def phase_allsky(info, dev, card):
           "AF equals CSAF: the clouds did nothing")
     check((tiers["cs"]["rsd"][lit, -1] < tiers["csaf"]["rsd"][lit, -1]).all(),
           "aerosols did not dim the surface")
-    ms = 1e3 * float(np.mean(step_s[1:]))
+    ms = 1e3 * float(np.mean(step_s[2:]))   # after warm-up, capture
     points = B * nlayers * (lw_gas.grid.n + sw_gas.grid.n)
     rate = points / (ms / 1e3)
 
+    graph_turns(info, "all-sky", step, [driver._step_cache])
     # (c) One profiled step, and K1's bound on the step: the sum of each
     # launch's (each LW molecule on the lit and on the night columns, each
     # SW molecule on the lit ones).
@@ -1361,10 +1594,12 @@ def phase_circ_app(info, dev, card, d):
     parses.update(native=0, python=0)
     try:
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         res = circ.main(argv, device=dev)
         torch.cuda.synchronize()
         app_s = time.perf_counter() - t0
+        app_peak = torch.cuda.max_memory_allocated()
     finally:
         go.parse_par_file, circ.build_driver = parse, build_driver
     app_launches = vk.accumulate_voigt.launches
@@ -1446,7 +1681,14 @@ def phase_circ_app(info, dev, card, d):
     for var in ("rlu", "rld"):
         check(np.array_equal(many[var], two[var]),
               f"DISORT changed the longwave {var}")
-    ms = 1e3 * float(np.mean(step_s[1:]))
+    ms = 1e3 * float(np.mean(step_s[2:]))   # after warm-up, capture
+    graph_turns(info, "CIRC two-stream",
+                lambda: driver.run(atm, integrated=True),
+                [driver._step_cache])
+    graph_turns(info, "CIRC DISORT", lambda: ddriver.run(atm, integrated=True),
+                [ddriver._step_cache],
+                tol=(TOL_GOLDEN, "cuBLAS and cuSOLVER may pick other "
+                     "algorithms inside a capture"))
     breakdown = profile_step(lambda: ddriver.run(atm, integrated=True))
     disort_share = breakdown.get("disort_ms", 0.0) / breakdown["busy_ms"] \
         if "busy_ms" in breakdown else None
@@ -1555,10 +1797,13 @@ def phase_circ_app(info, dev, card, d):
     return launches, k1_err
 
 
-def _run_on_rank(run):
+def _run_on_rank(run, caches=()):
     """``run()`` timed on this rank after a barrier (when a group is up),
     with K1's launch counts and the device's peak memory from 0: (its
-    result, {s, peak_bytes, k1_launches, plain_launches})."""
+    result, {s, peak_bytes, k1_launches, plain_launches}).  Then the
+    StepCaches ``caches`` are cleared: the ranks share one card, so each
+    of a rank's runs is the eager first call of its key and holds no
+    graph."""
     import torch
     import torch.distributed as dist
     from grtcode_tpu_torch.gas_optics import voigt_kernel as vk
@@ -1572,10 +1817,15 @@ def _run_on_rank(run):
     t0 = time.perf_counter()
     out = run()
     torch.cuda.synchronize()
-    return out, dict(s=time.perf_counter() - t0,
-                     peak_bytes=torch.cuda.max_memory_allocated(),
-                     k1_launches=vk.accumulate_voigt.launches,
-                     plain_launches=vk.voigt_line_sample_reference.launches)
+    got = dict(s=time.perf_counter() - t0,
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               k1_launches=vk.accumulate_voigt.launches,
+               plain_launches=vk.voigt_line_sample_reference.launches)
+    for cache in caches:
+        cache.clear()
+    if caches:
+        torch.cuda.empty_cache()
+    return out, got
 
 
 def _against(got, want):
@@ -1616,11 +1866,13 @@ def _mesh_rank(rank, store, out_dir):
         want = {}
         for S in (2, 1):
             want[S], report[f"single_S{S}"] = _run_on_rank(
-                lambda: driver.run(atm, spectral_chunks=S).tiers["csaf"])
+                lambda: driver.run(atm, spectral_chunks=S).tiers["csaf"],
+                [driver._step_cache])
         for C, S in ((1, 2), (2, 1)):
             mesh = make_mesh(C, S)
             got, run = _run_on_rank(
-                lambda: driver.run(atm, mesh=mesh).tiers["csaf"])
+                lambda: driver.run(atm, mesh=mesh).tiers["csaf"],
+                [driver._step_cache])
             run["identical"], run["max_rel"], run["identical_columns"] = \
                 _against(got, want[S])
             report[f"mesh_{C}x{S}"] = run
@@ -1707,6 +1959,9 @@ def phase_mesh(info, dev, card):
     check(one["k1_launches"] == n_mol and one["plain_launches"] == 0,
           f"NCCL (1 x 1): {one['k1_launches']} K1 launches")
     del want, got
+    # The two ranks below share the card: this process's graphs go first
+    # (phases 12 and 13 warm up and capture the cell's again).
+    driver.clear_cache()
 
     # (b) Two ranks on cuda:0 (gloo), spawned with a deadline.
     t0 = time.perf_counter()
@@ -2091,7 +2346,8 @@ def phase_library(info, dev, card, cell):
 
 def _timed_build(build, steps):
     """``build`` (an app's ``build_driver``) whose drivers time each
-    ``run`` to a synchronize and keep its result in ``steps``."""
+    ``run`` to a synchronize and keep (seconds, driver, result, (args,
+    keywords)) in ``steps``."""
     import torch
 
     def wrapper(*a, **k):
@@ -2103,7 +2359,7 @@ def _timed_build(build, steps):
             t = time.perf_counter()
             out = run(*ra, **rk)
             torch.cuda.synchronize()
-            steps.append((time.perf_counter() - t, driver, out))
+            steps.append((time.perf_counter() - t, driver, out, (ra, rk)))
             return out
 
         driver.run = timed_run
@@ -2116,7 +2372,7 @@ def _run_app(main, argv, dev, patch):
     """``main(argv, device=dev)`` with K1's counts and the device's peak
     from 0, the .par parses timed apart and ``patch`` (module, name,
     wrapper) applied: (wall s, parse s, parses, K1 launches, plain
-    launches, peak bytes)."""
+    launches, peak bytes allocated, peak bytes reserved)."""
     import torch
     from grtcode_tpu_torch.gas_optics import gas_optics as go
     from grtcode_tpu_torch.gas_optics import voigt_kernel as vk
@@ -2148,7 +2404,8 @@ def _run_app(main, argv, dev, patch):
         setattr(module, name, real)
     return (wall, sum(parse_s), len(parse_s), vk.accumulate_voigt.launches,
             vk.voigt_line_sample_reference.launches,
-            torch.cuda.max_memory_allocated())
+            torch.cuda.max_memory_allocated(),
+            torch.cuda.max_memory_reserved())
 
 
 def phase_apps_io(info, dev, card, d):
@@ -2165,9 +2422,12 @@ def phase_apps_io(info, dev, card, d):
     finite, variables only defined at the fill value with no storage.
     Returns K1's launches on both apps and its error against the plain
     version."""
+    import torch
     from grtcode_tpu_torch import examples
     from grtcode_tpu_torch.apps import circ, era5, rfmip
     from grtcode_tpu_torch.clouds.pade import synthetic_pade_table
+    from grtcode_tpu_torch.framework.driver import bucket_pad
+    from grtcode_tpu_torch.gas_optics import voigt_kernel as vk
     from grtcode_tpu_torch.gas_optics.molecules import MoleculeId
     from grtcode_tpu_torch.utils import hdf5, ncio
 
@@ -2210,21 +2470,27 @@ def phase_apps_io(info, dev, card, d):
 
     rfmip.load_atmosphere = keep_atm
     try:
-        wall, parse_s, parses, launches, plain, peak = _run_app(
+        wall, parse_s, parses, launches, plain, peak, app_res = _run_app(
             rfmip.main, argv, dev,
             (circ, "build_driver", lambda b: _timed_build(b, steps)))
     finally:
         rfmip.load_atmosphere = load
     check(plain == 0, "the plain version ran in the RFMIP-IRF app")
-    (step_s, driver, res), = steps
+    (step_s, driver, res, (ra, rk)), = steps
+    check(not driver._step_cache.entries, "the app's one run captured")
     atm = atms[0]
     rows = atm.batch * atm.num_layers
     check(rows == 6000, f"{rows} rows, expected 100 sites x 60 layers")
-    # Day compaction: the lit sites' LW and SW, the night sites' LW alone
-    # (the recipe's zenith angles put every fifth site at 95 degrees).
-    night_sites = int((np.asarray(atm.cos_zenith) <= 0).sum())
+    # The recipe's zenith angles put every fifth site at 95 degrees: 80
+    # lit sites round up to the whole batch's bucket, so (as in JAX) the
+    # whole batch runs LW and SW with the day mask, not day compaction
+    # (the lit sites' LW and SW, the night sites' LW alone).
+    lit_sites = np.flatnonzero(np.asarray(atm.cos_zenith) > 0)
+    night_sites = atm.batch - lit_sites.size
+    compacted = 0 < night_sites and \
+        bucket_pad(lit_sites, atm.batch).size < atm.batch
     mols = (len(driver.lw_gas.molecules), len(driver.sw_gas.molecules))
-    want = mols[0] + mols[1] + (mols[0] if night_sites else 0)
+    want = mols[0] + mols[1] + (mols[0] if compacted else 0)
     check(mols == (7, 7) and launches == want,
           f"{launches} K1 launches in the RFMIP-IRF app, expected {want} "
           f"({mols} molecules, {night_sites} sites at night)")
@@ -2252,7 +2518,39 @@ def phase_apps_io(info, dev, card, d):
     for key, v in tiers.items():
         check(np.isfinite(v).all() and (v >= 0).all(),
               f"RFMIP-IRF {key}: not finite or negative")
-    # K1 against the plain version on one LW launch at the app's rows.
+    # The step's graph: the app's run was the eager warm-up of its key; a
+    # second run captures and replays, a third replays.  Each equals the
+    # app's fluxes, and the process reserves at most 1.15x what the app
+    # reserved.
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    graph_runs = []
+    for _ in range(2):
+        before = vk.accumulate_voigt.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = driver.run(*ra, **rk)
+        torch.cuda.synchronize()
+        graph_runs.append(time.perf_counter() - t0)
+        got = again.host()["csaf"]
+        check(vk.accumulate_voigt.launches - before == launches,
+              f"RFMIP-IRF graph run: {vk.accumulate_voigt.launches - before}"
+              f" K1 launches, the app's step {launches}")
+        for key, v in tiers.items():
+            check(np.array_equal(got[key], v), f"RFMIP-IRF graph run: {key} "
+                  "differs from the app's eager step")
+        del again, got
+    graph_res = torch.cuda.max_memory_reserved()
+    graph_peak = torch.cuda.max_memory_allocated()
+    n_graphs = len(driver._step_cache.entries)
+    capture_s = sum(e.capture_s for e in driver._step_cache.entries.values())
+    check(n_graphs > 0, "RFMIP-IRF: no graph captured at the second run")
+    check(graph_res <= 1.15 * app_res, f"RFMIP-IRF: the graph runs reserve "
+          f"{graph_res / 2 ** 30:.2f} GiB, the app {app_res / 2 ** 30:.2f}")
+    # K1 against the plain version on one LW launch at the app's rows,
+    # with the driver's graph (the step's whole working set) freed first.
+    driver.clear_cache()
     part = {"p_lev": atm.level_pressure, "t_lev": atm.level_temperature,
             "vmr": dict(atm.ppmv)}
     k1 = full_rows_vs_plain(driver.lw_gas, int(MoleculeId.O2), part, dev,
@@ -2260,7 +2558,12 @@ def phase_apps_io(info, dev, card, d):
     check(k1["rows"] == 6000, f"K1 vs plain on {k1['rows']} rows")
     rfmip_run = dict(wall_s=wall, parse_s=parse_s, parses=parses,
                      step_s=step_s, peak_bytes=peak, launches=launches,
-                     rows=rows, night_sites=night_sites,
+                     reserved_bytes=app_res, rows=rows,
+                     graph=dict(capture_run_s=graph_runs[0],
+                                replay_s=graph_runs[1], graphs=n_graphs,
+                                capture_s=capture_s, reserved_bytes=graph_res,
+                                peak_bytes=graph_peak),
+                     night_sites=night_sites,
                      input_write_s=rfmip_write_s,
                      variables_checked=checked, nw=[driver.lw_gas.grid.n,
                                                     driver.sw_gas.grid.n])
@@ -2279,12 +2582,12 @@ def phase_apps_io(info, dev, card, d):
     argv = [path("hitran.par"), path("solar.csv"), era5_nc, ghg_nc,
             "-year", "1"] + tables + ["-sw", "-integrated", "-liquid-path",
                                       liquid, "-ice-path", ice, "-o", out]
-    wall5, parse5, parses5, launches5, plain5, peak5 = _run_app(
+    wall5, parse5, parses5, launches5, plain5, peak5, _ = _run_app(
         era5.main, argv, dev,
         (era5, "build_driver", lambda b: _timed_build(b, steps)))
     check(plain5 == 0, "the plain version ran in the ERA5 app")
     check(launches5 > 0, "K1 never launched in the ERA5 app")
-    (step5, driver, res), = steps
+    (step5, driver, res, _), = steps
     check(sorted(res.tiers) == ["af", "csaf"],
           f"ERA5 tiers {sorted(res.tiers)}, expected af and csaf")
     rows5 = res.tiers["csaf"]["rlu"].shape[0] * driver_layers(era5_nc)
@@ -2332,7 +2635,13 @@ def phase_apps_io(info, dev, card, d):
           f"sites x 61 levels ({rows} rows), LW {rfmip_run['nw'][0]} + SW "
           f"{rfmip_run['nw'][1]} points: rfmip.main {wall:.2f} s wall, "
           f"of it {parses} .par parses {parse_s:.2f} s and the step "
-          f"{step_s:.3f} s, peak {peak / gib:.2f} GiB, {launches} K1 "
+          f"{step_s:.3f} s (eager: the key's first call), peak "
+          f"{peak / gib:.2f} GiB, reserved {app_res / gib:.2f} GiB; its "
+          f"graph: a second run captures {n_graphs} in {capture_s:.2f} s "
+          f"({graph_runs[0]:.3f} s), a third replays ({graph_runs[1]:.3f} "
+          f"s), both equal to the app's fluxes, peak {graph_peak / gib:.2f}"
+          f" GiB, reserved {graph_res / gib:.2f} GiB "
+          f"({graph_res / app_res:.3f}x the app's); {launches} K1 "
           f"launches ({night_sites} sites at night), none plain, "
           f"{checked} variables read back equal to "
           f"the run's fluxes; K1 vs plain at {k1['rows']} rows: "
@@ -2385,7 +2694,7 @@ def phase_bench(info, dev, card):
 
     t_phase = time.perf_counter()
     held = torch.cuda.memory_allocated(dev)
-    steps = 1 + 10 + 2          # first, timed and profiled steps
+    steps = 2 + 10 + 2          # warm-up and capture, timed, profiled
     counts = (vk.accumulate_voigt, bk.accumulate_bins_kernel,
               vk.voigt_line_sample_reference, bm.accumulate_bins)
     # The main path, with every launch count starting at 0.
@@ -2424,6 +2733,21 @@ def phase_bench(info, dev, card):
              bm.accumulate_bins.launches)
     check(plain == (0, 0), f"the plain versions ran {plain} times in the "
           "bench runs")
+
+    # Phase 17's reading of both bench steps: make_step as main builds it.
+    for name, argv in zip(("bench defaults", "bench 0.01"),
+                          BENCH_RUNS.values()):
+        opts = bench.parser().parse_args(argv)
+        lw, sw, solar, batch, _, _ = bench.build(
+            lw_method=opts.method, lw_res=opts.lw_res, device=dev)
+        step_fn = bench.make_step(
+            lw, sw, solar, lw_blocks=opts.lw_blocks
+            or bench.default_lw_blocks(lw.grid.n))
+        args, chain = bench.step_args(batch), torch.zeros((), device=dev)
+        graph_turns(info, name, lambda: step_fn(*args, chain),
+                    [step_fn.cache])
+        del lw, sw, solar, step_fn
+        torch.cuda.empty_cache()
 
     # The CLI itself on the card.
     t0 = time.perf_counter()
@@ -2777,6 +3101,7 @@ def main():
     torch.cuda.empty_cache()
     launches16, err16, share16, band16 = phase_scatter(info, dev,
                                                        info["card"])
+    phase_graphs(info, info["card"])
     check("jax" not in sys.modules, "JAX was imported")
     check("h5py" not in sys.modules, "h5py was imported")
     info["seconds"] = time.perf_counter() - t0

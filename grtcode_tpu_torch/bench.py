@@ -14,12 +14,16 @@ N2O CH4 CO O2) and 4 SW molecules at HITRAN2016-scale line counts
 band 1-3250 cm-1 at 0.1 (32,491 points; ``--lw-res``) and the SW band
 1-50,000 cm-1 at 1.0 (50,000 points), 54 layers, B = 32 columns, both
 solvers, trapezoid-integrated fluxes.  One untimed first step (on the card
-it loads, or at first use builds, the two CUDA kernels), then 10 timed
+it loads, or at first use builds, the two CUDA kernels; a second one
+captures the step's graph), then 10 timed
 steps (2 with ``--smoke``) on the host clock ending in
 ``torch.cuda.synchronize()``.
 
-The step (:func:`make_step`) is the JAX bench's own, not
-``RadiationDriver.run``: emissivity 1, albedo 0.15, diffuse mu 0.5, the
+The step (:func:`make_step`) is the JAX bench's own, captured on the card
+as a CUDA graph as JAX jits it (``compile_first_s`` is then the eager
+warm-up step and the step that captures and replays), not
+``RadiationDriver.run``: emissivity
+1, albedo 0.15, diffuse mu 0.5, the
 surface 1.5 K above the bottom level, no day compaction, the LW band
 streamed in ``--lw-blocks`` quantum-aligned blocks and the SW band not,
 and a chain scalar ``rlu[0, 0] * 1e-30`` that the next step adds to the
@@ -60,6 +64,7 @@ from .solvers.longwave import longwave_fluxes
 from .solvers.rayleigh import rayleigh_tau
 from .solvers.shortwave import shortwave_fluxes
 from .utils import curtis_godson as cg
+from .utils import graphs
 from .utils.interp import block_trapezoid_weights, trapezoid_uniform
 
 # The reference processes 1800 columns (100 sites x 18 experiments) through
@@ -101,7 +106,14 @@ def make_step(lw_gas, sw_gas, solar, lw_blocks: int = 1):
     """``step(p_lev, t_lev, vmr, cfc_vmr, cia_vmr, mu, tsi, chain) -> (rlu,
     rld, rsu, rsd, chain)`` on the gas optics' device: the JAX bench's
     step, in its expression order, with its inputs as numpy arrays (ppmv)
-    and ``chain`` a 0-d f32 tensor added to ``t_lev``."""
+    and ``chain`` a 0-d f32 tensor added to ``t_lev``.
+
+    On a CUDA device the step is the JAX bench's ``jax.jit``: per input
+    shapes, eager at the first call, captured as a CUDA graph at the
+    second (:mod:`.utils.graphs`) and replayed after that, the numpy
+    inputs copied into its static tensors before each replay
+    (``step.cache`` holds the captured steps).  On the CPU, and
+    under :func:`.utils.debug.disable_jit`, it runs eagerly."""
     dev = lw_gas.device
     f32 = torch.float32
     lwg, swg = lw_gas.grid, sw_gas.grid
@@ -111,19 +123,19 @@ def make_step(lw_gas, sw_gas, solar, lw_blocks: int = 1):
     def t32(a):
         return torch.as_tensor(a, dtype=f32, device=dev)
 
-    def step(p_lev, t_lev, vmr, cfc_vmr, cia_vmr, mu, tsi, chain):
-        p_lev = t32(p_lev)
-        t_lev = t32(t_lev) + chain
-        vmrf = {k: t32(v) * 1e-6 for k, v in vmr.items()}
-        cfcf = {k: t32(v) * 1e-6 for k, v in cfc_vmr.items()}
-        ciaf = {k: t32(v) * 1e-6 for k, v in cia_vmr.items()}
+    def body(inputs):
+        p_lev, t_lev, vmr, cfc_vmr, cia_vmr, mu32, tsi, chain = inputs
+        t_lev = t_lev + chain
+        vmrf = {k: v * 1e-6 for k, v in vmr.items()}
+        cfcf = {k: v * 1e-6 for k, v in cfc_vmr.items()}
+        ciaf = {k: v * 1e-6 for k, v in cia_vmr.items()}
         t_layers = 0.5 * (t_lev[:, :-1] + t_lev[:, 1:])
         t_surf = t_lev[:, -1] + 1.5
         B_ = p_lev.shape[0]
 
         if nblk == 1:
             tau_lw = lw_gas.optical_depth(p_lev, t_lev, vmrf, cfc_vmr=cfcf,
-                                          cia_vmr=ciaf)
+                                          cia_vmr=ciaf, check=False)
             flu, fld = longwave_fluxes(
                 tau_lw, torch.zeros_like(tau_lw), t_surf, t_layers, t_lev,
                 torch.ones((B_, w_lw.shape[0]), dtype=f32, device=dev), w_lw)
@@ -137,7 +149,7 @@ def make_step(lw_gas, sw_gas, solar, lw_blocks: int = 1):
                 start = i * blk_lw
                 tau_b = lw_gas.optical_depth(
                     p_lev, t_lev, vmrf, cfc_vmr=cfcf, cia_vmr=ciaf,
-                    block_start=start, block_size=blk_lw)
+                    block_start=start, block_size=blk_lw, check=False)
                 flu, fld = longwave_fluxes(
                     tau_b, torch.zeros_like(tau_b), t_surf, t_layers, t_lev,
                     torch.ones((B_, blk_lw), dtype=f32, device=dev),
@@ -151,7 +163,7 @@ def make_step(lw_gas, sw_gas, solar, lw_blocks: int = 1):
 
         sw_vmr = {k: v for k, v in vmrf.items() if k in sw_gas.molecules}
         tau_sw = sw_gas.optical_depth(p_lev, t_lev, sw_vmr, cfc_vmr=cfcf,
-                                      cia_vmr=ciaf)
+                                      cia_vmr=ciaf, check=False)
         ray = rayleigh_tau(
             cg.number_densities(p_lev * constants.MB_TO_ATM), w_sw)
         tau_tot = tau_sw + ray
@@ -159,14 +171,31 @@ def make_step(lw_gas, sw_gas, solar, lw_blocks: int = 1):
         omega = ray / torch.clamp(tau_tot, min=1e-30)
         del ray
         alb = torch.full((B_, w_sw.shape[0]), 0.15, dtype=f32, device=dev)
-        mu32 = t32(mu)
         fsu, fsd = shortwave_fluxes(
             tau_tot, omega, torch.zeros_like(tau_tot), mu32,
-            torch.full_like(mu32, 0.5), alb, alb, t32(tsi),
+            torch.full_like(mu32, 0.5), alb, alb, tsi,
             solar.incident_flux)
         rsu = trapezoid_uniform(fsu, swg.dw)
         rsd = trapezoid_uniform(fsd, swg.dw)
         return rlu, rld, rsu, rsd, rlu[0, 0] * 1e-30
+
+    cache = graphs.StepCache()
+
+    def step(p_lev, t_lev, vmr, cfc_vmr, cia_vmr, mu, tsi, chain):
+        inputs = (t32(p_lev), t32(t_lev),
+                  {k: t32(v) for k, v in vmr.items()},
+                  {k: t32(v) for k, v in cfc_vmr.items()},
+                  {k: t32(v) for k, v in cia_vmr.items()}, t32(mu),
+                  t32(tsi), chain)
+        # The limits on the levels as given (chain, ~1e-30 K, cannot move
+        # a layer across them).
+        for gas in {g.method: g for g in (lw_gas, sw_gas)}.values():
+            gas.check_limits(inputs[0], inputs[1])
+        return cache((), body, inputs,
+                     label=f"bench step ({len(p_lev)} columns, {nblk} LW "
+                           "blocks)")
+
+    step.cache = cache
     return step
 
 
@@ -390,11 +419,12 @@ def main(argv=None, *, device=None) -> dict:
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    out = step(*args, torch.zeros((), dtype=torch.float32, device=dev))
+    for _ in range(2 if cuda else 1):     # the warm-up; on the card, capture
+        out = step(*args, torch.zeros((), dtype=torch.float32, device=dev))
     sync()
     compile_first_s = time.perf_counter() - t0
-    print(f"first step (kernels loaded): {compile_first_s:.1f}s",
-          file=sys.stderr)
+    what = "kernels loaded, warm-up, capture" if cuda else "kernels loaded"
+    print(f"first step ({what}): {compile_first_s:.1f}s", file=sys.stderr)
 
     iters = 2 if opts.smoke else 10
     t0 = time.perf_counter()

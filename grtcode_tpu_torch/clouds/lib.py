@@ -15,6 +15,7 @@ import torch
 from ..optics import Optics
 from ..spectral import SpectralGrid
 from ..utils import prng
+from ..utils.graphs import device_constant
 from .pade import PadeCloudOptics
 from .stochastic import overlap_parameter, sample_condensate
 
@@ -35,8 +36,8 @@ def ice_particle_size(temperature):
     """Ice particle *size* [microns] from layer temperature; the effective
     radius is half of this."""
     t = torch.as_tensor(temperature, dtype=torch.float32)
-    thresh = torch.tensor(_ICE_T_THRESH, dtype=torch.float32, device=t.device)
-    sizes = torch.tensor(_ICE_SIZES, dtype=torch.float32, device=t.device)
+    thresh = device_constant(_ICE_T_THRESH, t.device)
+    sizes = device_constant(_ICE_SIZES, t.device)
     return sizes[torch.searchsorted(thresh, t.contiguous(), right=True)]
 
 

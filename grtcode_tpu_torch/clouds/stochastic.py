@@ -31,7 +31,9 @@ def cloudiness(keys, overlap, num_layers: int) -> torch.Tensor:
     kx, kr = prng.split(keys, 2).unbind(-2)
     x = prng.uniform(kx, num_layers)
     r = prng.uniform(kr, num_layers - 1)
-    overlap = torch.as_tensor(overlap, device=x.device)
+    if not isinstance(overlap, torch.Tensor):      # an array-like
+        overlap = torch.as_tensor(overlap)
+    overlap = overlap.to(x.device)
     out = [x[..., 0]]
     for i in range(1, num_layers):
         out.append(torch.where(r[..., i - 1] <= overlap[..., i - 1],

@@ -16,6 +16,19 @@ night ones take the longwave-only step, and both are scattered back.  With
 ``spectral_chunks=S > 1`` each band is streamed through S spectral blocks
 one after the other, so a production resolution never holds a band-wide
 tau; ``column_chunk`` bounds the columns held at once.
+
+As the JAX package jits each step once per key and replays it, a step on
+a CUDA device runs eagerly at the first call of its key (the warm-up), is
+captured as a CUDA graph at the second and is replayed after that
+(:mod:`..utils.graphs`): the key is JAX's (the sky tiers, the output
+form, LW only or both bands, the spectral blocks, the solver and the
+cloud settings) plus the inputs' shapes, which name the bucket.  A run
+called once, as by the apps, holds no graph;
+:meth:`RadiationDriver.clear_cache` gives a driver's graphs back.  Day
+compaction pads the lit and the night columns to power-of-two buckets,
+as JAX does, so a new lit count in the same bucket replays the same
+graph.  On the CPU, and on the card under
+:func:`..utils.debug.disable_jit`, the step runs eagerly.
 """
 from __future__ import annotations
 
@@ -34,7 +47,7 @@ from ..solvers.rayleigh import rayleigh_tau
 from ..solvers.shortwave import shortwave_fluxes
 from ..solvers.solar_flux import SolarFlux
 from ..utils import curtis_godson as cg
-from ..utils import prng
+from ..utils import graphs, prng
 from ..utils.interp import (block_trapezoid_weights, interpolate_to_grid_np,
                             trapezoid_uniform)
 from .atmosphere import Atmosphere
@@ -82,6 +95,17 @@ class FluxResults:
         """The tiers as numpy arrays on the host (for the file writers)."""
         return {t: {k: v.cpu().numpy() for k, v in fx.items()}
                 for t, fx in self.tiers.items()}
+
+
+def bucket_pad(idx: np.ndarray, batch: int) -> np.ndarray:
+    """The column indices ``idx`` padded to a power-of-two bucket by
+    repeating the first, the bucket capped at ``batch`` (the JAX driver's
+    rule), so a step is captured per bucket size, not per count."""
+    b = 1
+    while b < idx.size:
+        b *= 2
+    b = min(b, batch)
+    return np.concatenate([idx, np.repeat(idx[:1], b - idx.size)])
 
 
 def _take(tree, idx):
@@ -143,6 +167,16 @@ class RadiationDriver:
 
     def __post_init__(self):
         self.device = self.lw_gas.device
+        # Captured steps by key in one memory pool (the JAX driver's
+        # ``_step_cache``), and the subcolumn keys by seed.
+        self._step_cache = graphs.StepCache()
+        self._keys = {}
+
+    def clear_cache(self) -> None:
+        """Drop the driver's captured steps and give their memory back to
+        the card (``jax.clear_caches()``): each key's next call runs
+        eagerly again, and the one after captures it."""
+        self._step_cache.clear()
 
     def _surface_spectra(self, atm: Atmosphere):
         """Emissivity / albedo on the solver grids (linear interpolation,
@@ -249,35 +283,45 @@ class RadiationDriver:
                         for k in parts[0][t]}
                     for t in parts[0]}
 
-        idx = torch.as_tensor(rows, device=self.device)
+        dev = self.device
+        idx = torch.as_tensor(rows, device=dev)
         col, cloud_args = (_take(tree, idx) for tree in state[:2])
         mu = None if state[2] is None else state[2][rows]
         with_sw = (self.sw_gas is not None and mu is not None
                    and bool(np.any(mu > 0.0)))
         step = dict(clean=clean, clear=clear, integrated=integrated, S=S,
                     block=block)
+        lit = night = None
         if with_sw and not np.all(mu > 0.0):
-            # Day compaction: the lit columns run LW + SW, the night ones
-            # LW only, and both scatter back into their rows.
-            dev = self.device
-            lit = torch.as_tensor(np.flatnonzero(mu > 0.0), device=dev)
-            night = torch.as_tensor(np.flatnonzero(~(mu > 0.0)), device=dev)
-            out_lit = self._step(_take(col, lit), _take(cloud_args, lit),
-                                 with_sw=True, **step)
-            out_night = self._step(_take(col, night),
-                                   _take(cloud_args, night), with_sw=False,
-                                   **step)
-            out = {}
-            for t, fluxes in out_lit.items():
-                out[t] = {}
-                for k, a_lit in fluxes.items():
-                    full = torch.zeros((rows.size,) + a_lit.shape[1:],
-                                       dtype=a_lit.dtype, device=dev)
-                    full[lit] = a_lit
-                    full[night] = out_night[t][k]
-                    out[t][k] = full
-            return out
-        return self._step(col, cloud_args, with_sw=with_sw, **step)
+            lit = np.flatnonzero(mu > 0.0)
+            night = np.flatnonzero(~(mu > 0.0))
+            if bucket_pad(lit, rows.size).size >= rows.size:
+                # The lit bucket is the whole batch: compaction would save
+                # no SW work and add a night step, so the full batch runs
+                # with the day mask instead (as in JAX).
+                lit = night = None
+        if lit is None:
+            return self._step(col, cloud_args, with_sw=with_sw, **step)
+        # Day compaction: the lit columns run LW + SW, the night ones LW
+        # only, each padded to its bucket, and both scatter back.
+        lit_p, night_p = (torch.as_tensor(bucket_pad(i, rows.size),
+                                          device=dev) for i in (lit, night))
+        out_lit = self._step(_take(col, lit_p), _take(cloud_args, lit_p),
+                             with_sw=True, **step)
+        out_night = self._step(_take(col, night_p),
+                               _take(cloud_args, night_p), with_sw=False,
+                               **step)
+        lit, night = (torch.as_tensor(i, device=dev) for i in (lit, night))
+        out = {}
+        for t, fluxes in out_lit.items():
+            out[t] = {}
+            for k, a_lit in fluxes.items():
+                full = torch.zeros((rows.size,) + a_lit.shape[1:],
+                                   dtype=a_lit.dtype, device=dev)
+                full[lit] = a_lit[:lit.numel()]
+                full[night] = out_night[t][k][:night.numel()]
+                out[t][k] = full
+        return out
 
     def _run_mesh(self, state, batch, mesh, clean, clear, integrated,
                   column_chunk):
@@ -397,13 +441,50 @@ class RadiationDriver:
         size = -(-(-(-n // S)) // q) * q
         return size, [s * size for s in range(S)]
 
+    def _subcolumn_keys(self):
+        """The (num_subcolumns, 2) cloud keys of ``cloud_seed``, built
+        once per seed and count."""
+        key = (self.cloud_seed, self.num_subcolumns)
+        if key not in self._keys:
+            self._keys[key] = prng.split(
+                prng.prng_key(self.cloud_seed, self.device),
+                self.num_subcolumns)
+        return self._keys[key]
+
     def _step(self, col, cloud_args, clean: bool, clear: bool,
               integrated: bool, with_sw: bool, S: int, block=None):
         """Every tier on one batch, summed over its S spectral blocks, or
         on block ``block`` alone.  ``with_sw=False`` is the longwave-only
         step of night columns: its shortwave fluxes are zeros (shaped as
-        the SW band's block spectra in spectral output)."""
-        dev = self.device
+        the SW band's block spectra in spectral output).
+
+        On a CUDA device the step is the captured graph of its key (JAX's
+        ``_step_cache``): eager at its first call, captured at the second
+        and replayed after that; on the CPU or under
+        :func:`..utils.debug.disable_jit` it runs eagerly.  The line_sample limits are checked on the inputs first.
+        """
+        gases = (self.lw_gas,) + ((self.sw_gas,) if with_sw else ())
+        for gas in {g.method: g for g in gases}.values():   # one per method
+            gas.check_limits(col["p_lev"], col["t_lev"])
+        keys = None if clear else self._subcolumn_keys()
+
+        def body(inputs):
+            return self._step_body(*inputs, keys, clean, clear, integrated,
+                                   with_sw, S, block)
+
+        key = (clean, clear, integrated, with_sw, S, block, self.sw_solver,
+               self.disort_streams, self.num_subcolumns, self.cloud_seed,
+               self.cloud_optics)
+        return self._step_cache(
+            key, body, (col, cloud_args),
+            label=f"driver step (clean={clean}, clear={clear}, "
+                  f"integrated={integrated}, with_sw={with_sw}, "
+                  f"spectral_chunks={S}, block={block}, "
+                  f"{col['t_lev'].shape[0]} columns)")
+
+    def _step_body(self, col, cloud_args, keys, clean, clear, integrated,
+                   with_sw, S, block):
+        """:meth:`_step`'s computation: what a graph captures."""
         pad = torch.nn.functional.pad
         size_lw, starts_lw = self._blocks(self.lw_gas, S)
         col = dict(col, emis=pad(col["emis"],
@@ -416,10 +497,6 @@ class RadiationDriver:
                     col[k] = pad(col[k], (0, size_sw * S - col[k].shape[-1]))
             sol = self.solar.incident_flux
             sol = pad(sol, (0, size_sw * S - sol.shape[-1]))
-        keys = None
-        if not clear:
-            keys = prng.split(prng.prng_key(self.cloud_seed, dev),
-                              self.num_subcolumns)
         starts = list(zip(starts_lw, starts_sw))
         if block is not None:
             starts = starts[block:block + 1]
@@ -457,7 +534,7 @@ class RadiationDriver:
         emis = col["emis"][:, start_lw:start_lw + size_lw]
         tau_lw = self.lw_gas.optical_depth(
             col["p_lev"], col["t_lev"], col["vmr_lw"],
-            cfc_vmr=col["cfc_vmr"], cia_vmr=col["cia_vmr"],
+            cfc_vmr=col["cfc_vmr"], cia_vmr=col["cia_vmr"], check=False,
             **window(start_lw, size_lw))
         gas_lw = Optics.from_tau(tau_lw)
         del tau_lw
@@ -473,7 +550,7 @@ class RadiationDriver:
             mu = torch.clamp(col["mu"], min=1e-6)
             tau_sw = self.sw_gas.optical_depth(
                 col["p_lev"], col["t_lev"], col["vmr_sw"],
-                cfc_vmr=col["cfc_vmr"], cia_vmr=col["cia_vmr"],
+                cfc_vmr=col["cfc_vmr"], cia_vmr=col["cia_vmr"], check=False,
                 **window(start_sw, size_sw))
             ray = rayleigh_tau(
                 cg.number_densities(col["p_lev"] * constants.MB_TO_ATM), w_sw)
@@ -503,8 +580,12 @@ class RadiationDriver:
                     torch.full_like(mu, DIFFUSE_MU), albedo, albedo_dif,
                     col["tsi"], sol_block)
             if with_sw:
-                out["rsu"] = reduce(fsu, swg, start_sw, size_sw)
-                out["rsd"] = reduce(fsd, swg, start_sw, size_sw)
+                # The day mask: a night column of a full batch gets zero
+                # shortwave (mu was clamped for the solvers).
+                day = (col["mu"] > 0.0).to(torch.float32)[:, None]
+                day = day if integrated else day[..., None]
+                out["rsu"] = reduce(fsu, swg, start_sw, size_sw) * day
+                out["rsd"] = reduce(fsd, swg, start_sw, size_sw) * day
             else:
                 # Night columns: zeros, SW-block spectra in spectral output.
                 shape = out["rlu"].shape

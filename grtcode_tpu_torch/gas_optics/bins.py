@@ -30,6 +30,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils.graphs import device_constant
 from .hitran import STRENGTH_SCALE
 from .lines import GridLines, PreparedLines
 from .voigt import voigt_line_shape
@@ -287,9 +288,13 @@ def accumulate_bins(prep: PreparedLines, ns, ranges: BinRanges,
     cols = (prep.center_idx, prep.center_frac, prep.strength, prep.lorentz,
             prep.doppler)
     ns_scaled = (ns.to(f32) / STRENGTH_SCALE)[:, None, None, None]
-    dw = torch.tensor(bins.wres, dtype=f32, device=device)
-    bnd = torch.as_tensor(ranges.bounds().astype(np.int64), device=device)
-    w_rel = torch.as_tensor(bins.w_rel, device=device)
+    dw = device_constant(bins.wres, device)
+    key = ("plain", torch.device(device))     # the tables, copied once
+    if key not in ranges._on_device:
+        ranges._on_device[key] = (
+            torch.as_tensor(ranges.bounds().astype(np.int64), device=device),
+            torch.as_tensor(bins.w_rel, device=device))
+    bnd, w_rel = ranges._on_device[key]
     pts_local = torch.arange(ppb, dtype=f32, device=device)
     per_bin = max(ranges.lmax_local * ppb, ranges.lmax_remote * NIP)
     step = max(1, _PLAIN_BUDGET // (rows * per_bin))
@@ -327,6 +332,7 @@ def interpolate_bins(bins_tau, bin_l, bin_w_rel, *, ppb: int, last_ppb: int,
 
     bins_tau: (rows, nbins, NIP); bin_l: (nbins,) first fine index per bin;
     bin_w_rel: (nbins, NIP) f32 interpolation positions in grid units.
+    A step passes both as device tensors, which are used as they are.
 
     For a spectral block of bins, pass the block's rows of bins_tau /
     bin_l / bin_w_rel plus ``bin0`` (the block's first global bin index)
@@ -340,8 +346,10 @@ def interpolate_bins(bins_tau, bin_l, bin_w_rel, *, ppb: int, last_ppb: int,
     device = bins_tau.device
     f32 = torch.float32
     pts = torch.arange(ppb, dtype=f32, device=device)
-    wrel = torch.as_tensor(bin_w_rel, dtype=f32, device=device)
-    bl = torch.as_tensor(bin_l, device=device).to(f32)
+    wrel, bl = (a if isinstance(a, torch.Tensor) else torch.as_tensor(a)
+                for a in (bin_w_rel, bin_l))             # an array-like
+    wrel = wrel.to(device=device, dtype=f32)
+    bl = bl.to(device=device, dtype=f32)
     # Per-bin fine positions (nbins, ppb), relative to x0 of the bin.
     p = (bl[:, None] + pts[None, :]) - wrel[:, 0:1]
     x1 = wrel[:, 1:2] - wrel[:, 0:1]

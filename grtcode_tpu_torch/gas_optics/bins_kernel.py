@@ -33,6 +33,7 @@ import torch
 
 from ..cuda_build import build_library
 from ..utils import debug
+from ..utils.graphs import count_launches
 from .bins import NIP, BinRanges, SpectralBins, accumulate_bins
 from .lines import PreparedLines
 
@@ -100,6 +101,7 @@ def _check_cuda_args(prep: PreparedLines, ns, tau0, bins_tau0, nbins: int,
         raise ValueError("line or point count exceeds int32 indexing")
 
 
+@count_launches
 def accumulate_bins_kernel(prep: PreparedLines, ns, ranges: BinRanges,
                            bins: SpectralBins, *, start_bin: int = 0,
                            nbins: int | None = None, tau0=None,
@@ -145,6 +147,3 @@ def accumulate_bins_kernel(prep: PreparedLines, ns, ranges: BinRanges,
     accumulate_bins_kernel.launches += 1
     debug.check_kernel_output("voigt_bins", (tau0, bins_tau0))
     return tau0, bins_tau0
-
-
-accumulate_bins_kernel.launches = 0

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from .. import constants
 from ..spectral import SpectralGrid
 from ..utils import curtis_godson as cg
+from ..utils.graphs import device_constant
 from . import bins as bins_mod
 from . import lines as lines_mod
 from . import tips as tips_mod
@@ -162,6 +163,17 @@ class GasOptics:
             padded.c0, self.grid.n, fsteps, self.tile, self.ch,
             shift_margin=margin, near_hw=near + margin,
             region0_hw=lines_mod.region0_halfwidth(padded, self.grid.dw))
+        # What a step reads of this molecule goes to the device now, once,
+        # so that a captured step copies nothing from the host.
+        padded.tensors(self.device)
+        device_constant(padded.mass_g, self.device)
+        device_constant(self.grid.dw, self.device)
+        tips_mod.q_inverse_layers(
+            self.tips, padded.mol_id,
+            torch.full((1,), constants.TREF, device=self.device),
+            padded.num_iso)
+        if self.method in _K1_METHODS:
+            self.chunk_ranges[catalog.mol_id].tables(self.device)
 
     def add_cfc(self, cfc_id, path: str):
         table = CrossSectionTable.from_file(int(cfc_id), path, self.grid,
@@ -179,12 +191,37 @@ class GasOptics:
         self.cias.append((int(species1), int(species2), table))
 
     # -- forward pass ------------------------------------------------------
+    def check_limits(self, level_pressure_mb, level_temperature) -> None:
+        """Raise ValueError for layers beyond the line_sample tables'
+        limits (a no-op for the other methods).  It reads the layers'
+        largest temperature and pressure on the host, so a captured step
+        cannot hold it: the driver and the bench run it on the step's
+        inputs before capture or replay."""
+        if self.method not in _K1_METHODS:
+            return
+        # The line_sample tables (near core, zones, shift margins) hold
+        # only up to these limits; beyond them a sample would silently
+        # take the wrong Humlicek region.
+        p2, t2 = (torch.atleast_2d(torch.as_tensor(
+            x, dtype=torch.float32, device=self.device))
+            for x in (level_pressure_mb, level_temperature))
+        pavg, tavg = cg.layer_pressures_temperatures(
+            p2 * constants.MB_TO_ATM, t2)
+        t_max, p_max = torch.stack([tavg.max(), pavg.max()]).tolist()
+        if t_max > lines_mod.TMAX_K or p_max > lines_mod.PMAX_ATM:
+            raise ValueError(
+                f"layer temperature {t_max} K or pressure {p_max} atm "
+                f"beyond the line_sample tables' limits "
+                f"({lines_mod.TMAX_K} K, {lines_mod.PMAX_ATM} atm); "
+                f'method="scatter" computes such rows')
+
     def optical_depth(self, level_pressure_mb, level_temperature,
                       vmr: Mapping[int, torch.Tensor],
                       cfc_vmr: Mapping[int, torch.Tensor] | None = None,
                       cia_vmr: Mapping[int, torch.Tensor] | None = None,
                       block_start: int | None = None,
-                      block_size: int | None = None) -> torch.Tensor:
+                      block_size: int | None = None,
+                      check: bool = True) -> torch.Tensor:
         """Gas optical depth (..., nlayers, n_w).
 
         Args:
@@ -195,6 +232,8 @@ class GasOptics:
           block_start / block_size: compute only the spectral window
             [block_start, block_start + block_size); ``block_start`` must
             be a multiple of :attr:`block_quantum`.
+          check: run :meth:`check_limits` first; a captured step passes
+            False, its caller having checked the inputs.
         """
         cfc_vmr = cfc_vmr or {}
         cia_vmr = cia_vmr or {}
@@ -233,19 +272,10 @@ class GasOptics:
             padded = F.pad(table, (0, -(-n // nw) * nw - n))
             return padded[start:start + nw]
 
+        if check:
+            self.check_limits(level_pressure_mb, level_temperature)
         tau = torch.zeros((rows, nw), dtype=f32, device=self.device)
         bin_method = self.method in _BIN_METHODS
-        if self.method in _K1_METHODS:
-            # The line_sample tables (near core, zones, shift margins) hold
-            # only up to these limits; beyond them a sample would silently
-            # take the wrong Humlicek region.
-            t_max, p_max = torch.stack([tavg.max(), pavg.max()]).tolist()
-            if t_max > lines_mod.TMAX_K or p_max > lines_mod.PMAX_ATM:
-                raise ValueError(
-                    f"layer temperature {t_max} K or pressure {p_max} atm "
-                    f"beyond the line_sample tables' limits "
-                    f"({lines_mod.TMAX_K} K, {lines_mod.PMAX_ATM} atm); "
-                    f'method="scatter" computes such rows')
         if bin_method:
             # The block is a whole number of bin groups and needs nothing
             # outside itself: every fine point and coarse triple of its

@@ -23,6 +23,7 @@ from . import molecules as mol_registry
 from . import tips as tips_mod
 from .hitran import LineCatalog
 from ..spectral import SpectralGrid
+from ..utils.graphs import device_constant
 
 _DEVICE_FIELDS = ("c0", "frac0", "vnn", "snn", "yair", "yself", "en", "n",
                   "d", "iso0")
@@ -191,7 +192,7 @@ def prepare(lines: GridLines, grid: SpectralGrid, pavg, tavg, psavg,
     d = dev["d"]
 
     # Pressure-shifted centers in split representation (vnn = v0 + d p).
-    dw = torch.tensor(grid.dw, dtype=torch.float32, device=pavg.device)
+    dw = device_constant(grid.dw, pavg.device)
     shift = d * pavg / dw                            # (rows, L) grid units
     frac = dev["frac0"][None, :] + shift
     adj = torch.floor(frac + 0.5)
@@ -214,8 +215,8 @@ def prepare(lines: GridLines, grid: SpectralGrid, pavg, tavg, psavg,
     # Doppler half-widths with the shifted center:
     # alpha = sqrt(ln2) * vnn * sqrt(2 k T / (m c^2)).
     vnn_shifted = dev["vnn"] + d * pavg
-    mc2 = torch.tensor(lines.mass_g, dtype=torch.float32,
-                       device=pavg.device) * constants.C_CGS * constants.C_CGS
+    mc2 = device_constant(lines.mass_g, pavg.device) * \
+        constants.C_CGS * constants.C_CGS
     doppler = constants.SQRT_LN2 * vnn_shifted * torch.sqrt(
         2.0 * constants.KB_CGS * tavg / mc2)
 

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from .. import constants
 from .hitran import STRENGTH_SCALE
+from ..utils.graphs import device_constant
 from .lines import PreparedLines
 from .voigt import voigt_line_shape
 
@@ -96,10 +97,9 @@ def accumulate_line_sample(center_idx, center_frac, strength, lorentz, doppler,
     offsets = torch.arange(-fsteps, fsteps + 1, dtype=torch.int64,
                            device=device)
     offs_f = offsets.to(torch.float32)
-    dw_f = torch.tensor(dw, dtype=torch.float32, device=device)
+    dw_f = device_constant(dw, device)
     ns_scaled = (ns.to(torch.float32)
-                 / torch.tensor(STRENGTH_SCALE, dtype=torch.float32,
-                                device=device))[:, None, None]
+                 / device_constant(STRENGTH_SCALE, device))[:, None, None]
     row_base = (torch.arange(rows, dtype=torch.int64, device=device)
                 * num_wpoints)[:, None, None]
     step = lines_per_step(rows, fsteps, chunk)

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from .. import constants
+from ..utils.graphs import device_constant
 from . import molecules as mol_registry
 
 DEFAULT_TABLE_ENV = "GRTCODE_TPU_TIPS"
@@ -96,6 +97,22 @@ class TabulatedTips:
         self._tables = {(int(m), int(i)): np.asarray(v, dtype=np.float64)
                         for (m, i), v in tables.items()}
         self.fallback = fallback if fallback is not None else PowerLawTips()
+        self._on_device = {}
+
+    def device_tables(self, mol_id: int, num_iso: int, device, dtype):
+        """(T grid (nT,), tables (num_iso, nT)) of a tabulated molecule
+        as ``dtype`` tensors on ``device``, copied once: isotopologues the
+        table lacks take the principal one's."""
+        key = (int(mol_id), int(num_iso), torch.device(device), dtype)
+        if key not in self._on_device:
+            tables = [self._tables[(int(mol_id),
+                                    iso if self.has(mol_id, iso) else 1)]
+                      for iso in range(1, num_iso + 1)]
+            self._on_device[key] = (
+                torch.as_tensor(self._tgrid, dtype=dtype, device=device),
+                torch.as_tensor(np.stack(tables), dtype=dtype,
+                                device=device))
+        return self._on_device[key]
 
     def has(self, mol_id: int, iso: int = 1) -> bool:
         return (int(mol_id), int(iso)) in self._tables
@@ -171,16 +188,11 @@ def q_inverse_layers(tips, mol_id: int, tavg: torch.Tensor, num_iso: int):
         tips = tips.fallback
     if isinstance(tips, PowerLawTips):
         ratio = (constants.TREF / tavg) ** tips.beta(mol_id)
-        q296 = torch.tensor([tips.q296(mol_id, iso)
-                             for iso in range(1, num_iso + 1)],
-                            dtype=torch.float32, device=tavg.device)
+        q296 = device_constant(tuple(float(tips.q296(mol_id, iso))
+                                     for iso in range(1, num_iso + 1)),
+                               tavg.device)
         return ratio[:, None] / q296[None, :]
-    tables = []
-    for iso in range(1, num_iso + 1):
-        key = iso if tips.has(mol_id, iso) else 1
-        tables.append(tips._tables[(int(mol_id), key)])
-    table = torch.as_tensor(np.stack(tables), dtype=tavg.dtype,
-                            device=tavg.device)              # (num_iso, nT)
-    tgrid = torch.as_tensor(tips._tgrid, dtype=tavg.dtype, device=tavg.device)
+    tgrid, table = tips.device_tables(mol_id, num_iso, tavg.device,
+                                      tavg.dtype)            # (num_iso, nT)
     qt = _interp(tavg, tgrid, table)                         # (num_iso, L)
     return (1.0 / qt).T

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from .. import constants
+from ..utils.graphs import device_constant
 
 _PI = 3.14159265358979323846
 
@@ -30,7 +31,7 @@ def _div(num: float, t):
     """``num / t`` as one IEEE division, as XLA and the CUDA kernel compute
     it (PyTorch evaluates a Python number over a tensor as
     ``t.reciprocal() * num``, one rounding more)."""
-    return torch.tensor(num, dtype=t.dtype, device=t.device) / t
+    return device_constant(num, t.device, t.dtype) / t
 
 
 def humlicek_region(abx, y):
@@ -184,9 +185,10 @@ def voigt_line_shape(dv, lorentz_hwhm, doppler_hwhm):
       doppler_hwhm: Doppler HWHM including sqrt(ln2) [cm-1].
 
     Every sample takes the region-0 (Lorentz-wing) value or the
-    pure-Lorentz limit; the full five-region ``humlicek_k`` runs only on
-    the samples inside the region-0 limit, with the same operations, so the
-    result is that of ``humlicek_k`` everywhere.
+    pure-Lorentz limit; the samples inside the region-0 limit take the
+    full five-region ``humlicek_k`` (on the CPU it runs on those samples
+    alone, on the card on every sample and is selected), with the same
+    operations, so the result is that of ``humlicek_k`` everywhere.
     """
     repwid = _div(constants.SQRT_LN2, doppler_hwhm)
     y = repwid * lorentz_hwhm
@@ -202,6 +204,12 @@ def voigt_line_shape(dv, lorentz_hwhm, doppler_hwhm):
     k = scale * ((y_safe * constants.RSQRPI) / (abx * abx + y_safe * y_safe))
     k = torch.where(lor, lorentz, k)
     core = (humlicek_region(abx, y_safe) != 0) & ~lor
+    if k.is_cuda:
+        # On the card the step is captured, and a graph cannot size the
+        # core samples on the host: every sample takes the five-region
+        # value, the same on the selected ones (as the JAX function
+        # computes it).  The CPU evaluates the core samples alone.
+        return torch.where(core, scale * humlicek_k(xi, y_safe), k)
     if bool(core.any()):
         k[core] = scale[core] * humlicek_k(xi[core], y_safe[core])
     return k

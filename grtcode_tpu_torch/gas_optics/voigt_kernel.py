@@ -37,6 +37,7 @@ import torch
 
 from ..cuda_build import build_library
 from ..utils import debug
+from ..utils.graphs import count_launches, device_constant
 from .hitran import STRENGTH_SCALE
 from .lines import PreparedLines
 from .voigt import voigt_far_wing, voigt_line_shape
@@ -218,7 +219,7 @@ def voigt_line_sample_reference(prep: PreparedLines, ns, *, num_wpoints: int,
     offsets = torch.arange(-fsteps, fsteps + 1, dtype=torch.int64,
                            device=device)
     offs_f = offsets.to(torch.float32)
-    dw_f = torch.tensor(dw, dtype=torch.float32, device=device)
+    dw_f = device_constant(dw, device)
     ns_scaled = (ns.to(torch.float32) / STRENGTH_SCALE)[:, None, None]
     core = slice(fsteps - near, fsteps + near + 1)
     row_base = (torch.arange(rows, dtype=torch.int64, device=device)
@@ -278,6 +279,7 @@ def _check_cuda_args(prep: PreparedLines, ns, tau0, ranges: ChunkRanges,
         raise ValueError("line or point count exceeds int32 indexing")
 
 
+@count_launches
 def accumulate_voigt(prep: PreparedLines, ns, ranges: ChunkRanges, *,
                      num_wpoints: int, dw: float, fsteps: int, near: int,
                      num_global: int, tau0=None, start: int = 0):
@@ -331,6 +333,3 @@ def accumulate_voigt(prep: PreparedLines, ns, ranges: ChunkRanges, *,
     accumulate_voigt.launches += 1
     debug.check_kernel_output("voigt_line_sample", tau0)
     return tau0
-
-
-accumulate_voigt.launches = 0

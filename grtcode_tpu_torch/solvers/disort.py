@@ -33,6 +33,11 @@ _TAU_CLAMP = 1e6    # beyond this a layer is numerically opaque in f32
 # exp(ln2 * x), neither exact at integers; the doubling counts and
 # sub-layer thicknesses below use the same expressions.
 _LN2 = float(np.float32(np.log(2.0)))
+# The doubling count's operands as CPU scalars (as the solver has always
+# divided by them), built once.
+_DTAU_TARGET_T = torch.tensor(_DTAU_TARGET, dtype=torch.float32)
+_LOG2_T = torch.log(torch.tensor(2.0))
+_stream_tables: dict = {}
 
 
 def gauss_streams(nstr: int):
@@ -72,6 +77,28 @@ def _legendre_mu0(mu0, lmax: int):
 def _mv(a, v):
     """Batched matrix-vector product (..., h, h) x (..., h) -> (..., h)."""
     return (a @ v[..., None])[..., 0]
+
+
+def _streams_on(nstr: int, device):
+    """The quadrature's f32 tables on ``device``, built once per stream
+    count: streams mu and weights (h,), the (L+1, h, h) same- and
+    opposite-hemisphere Legendre products, P_l(mu_i) (L+1, h) and the
+    signs (-1)^l (L+1,)."""
+    key = (nstr, torch.device(device))
+    if key not in _stream_tables:
+        mu_np, w_np = gauss_streams(nstr)
+        lmax = nstr
+        pl = _legendre_table(mu_np, lmax)              # (L+1, h)
+        sign = (-1.0) ** np.arange(lmax + 1)
+        coef = 2 * np.arange(lmax + 1) + 1
+        _stream_tables[key] = tuple(
+            torch.as_tensor(a, dtype=torch.float32, device=device)
+            for a in (mu_np, w_np,
+                      coef[:, None, None] * pl[:, :, None] * pl[:, None, :],
+                      (coef * sign)[:, None, None] * pl[:, :, None]
+                      * pl[:, None, :],
+                      pl, sign))
+    return _stream_tables[key]
 
 
 def _check_precision():
@@ -121,22 +148,13 @@ def disort_shortwave(tau, omega, g, mu_dir, albedo_dir,
     B, nlayers, nw = tau.shape
 
     h = nstr // 2
-    mu_np, w_np = gauss_streams(nstr)
     lmax = nstr
-    pl = _legendre_table(mu_np, lmax)                  # (L+1, h)
-    mu = t(mu_np)
-    wq = t(w_np)
-    # (L+1, h, h) same- / opposite-hemisphere Legendre products.
-    sign = (-1.0) ** np.arange(lmax + 1)
-    coef = 2 * np.arange(lmax + 1) + 1
-    ppp_l = t(coef[:, None, None] * pl[:, :, None] * pl[:, None, :])
-    ppm_l = t((coef * sign)[:, None, None] * pl[:, :, None] * pl[:, None, :])
-    pl_dev = t(pl)                                     # (L+1, h)
+    mu, wq, ppp_l, ppm_l, pl_dev, sign = _streams_on(nstr, dev)
     ls = torch.arange(lmax + 1, dtype=f32, device=dev)
     # (B, L+1, h): P_l(mu_i) (2l+1) P_l(mu0), and with (-1)^l.
     base = (2.0 * ls + 1.0) * _legendre_mu0(mu0, lmax).T
     beam_m = pl_dev * base[..., None]
-    beam_p = t(sign)[:, None] * beam_m
+    beam_p = sign[:, None] * beam_m
     eye = torch.eye(h, dtype=f32, device=dev)
     fbeam = tsi[:, None] * t(solar_flux)               # (B, nw)
 
@@ -163,10 +181,9 @@ def disort_shortwave(tau, omega, g, mu_dir, albedo_dir,
 
         # Per-layer doubling count k: dtau = tau / 2^k stays near
         # _DTAU_TARGET, thin layers use k = 0.
-        q = torch.clamp(tau, min=1e-30) / torch.tensor(_DTAU_TARGET,
-                                                         dtype=f32)
+        q = torch.clamp(tau, min=1e-30) / _DTAU_TARGET_T
         k_layer = torch.clamp(
-            torch.ceil(torch.log(q) / torch.log(torch.tensor(2.0))),
+            torch.ceil(torch.log(q) / _LOG2_T),
             0.0, float(_DOUBLINGS))                    # (B, nlay, W)
         dtau = tau / torch.exp(_LN2 * k_layer)
         x = (dtau[..., None] * omega[..., None] * 0.5) / mu  # (.., W, h)

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from .. import constants
+from ..utils.graphs import device_constant
 from .planck import effective_planck, planck_law
 
 
@@ -22,10 +23,10 @@ def longwave_fluxes(tau, omega, t_surf, t_layers, t_levels, emis, w):
     """Longwave up/down fluxes per wavenumber at every level."""
     tau_eff = tau * (1.0 - omega)
     nlayers = tau.shape[-2]
-    c1 = torch.tensor(constants.LW_STREAM_SECANTS, dtype=tau.dtype,
-                      device=tau.device)[:, None, None]     # (4, 1, 1)
-    c2 = torch.tensor(constants.LW_STREAM_WEIGHTS, dtype=tau.dtype,
-                      device=tau.device)[:, None]           # (4, 1)
+    c1 = device_constant(tuple(constants.LW_STREAM_SECANTS), tau.device,
+                         tau.dtype)[:, None, None]          # (4, 1, 1)
+    c2 = device_constant(tuple(constants.LW_STREAM_WEIGHTS), tau.device,
+                         tau.dtype)[:, None]                # (4, 1)
 
     # Extinction per stream: exp(min(c1_j tau, MAX_EXP_ARG)).
     ext = torch.exp(torch.clamp(c1 * tau_eff[..., None, :, :],

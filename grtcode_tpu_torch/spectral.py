@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from . import constants
+from .utils.graphs import device_constant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,8 +53,8 @@ class SpectralGrid:
         size = self.n - start if size is None else size
         idx = torch.arange(start, start + size, dtype=torch.int32,
                            device=device).to(dtype)
-        w0 = torch.tensor(self.w0, dtype=dtype, device=device)
-        dw = torch.tensor(self.dw, dtype=dtype, device=device)
+        w0 = device_constant(self.w0, device, dtype)
+        dw = device_constant(self.dw, device, dtype)
         return w0 + dw * idx
 
     def wavenumbers_np(self, dtype=np.float64) -> np.ndarray:

@@ -14,7 +14,13 @@ checks and guards its inputs with range macros (utilities/src/debug.h:
     mirroring the reference's temperature / probability / zenith limits,
     raising ValueError (GRTCODE_RANGE_ERR across the C ABI);
   * ``checked()`` — wraps a function so it returns ``(error, value)``
-    instead of raising on a trapped value or a failed :func:`check`.
+    instead of raising on a trapped value or a failed :func:`check`;
+  * ``disable_jit()`` — the counterpart of ``jax.disable_jit()``: inside
+    it a driver or bench step on a CUDA device runs eagerly, op by op,
+    instead of replaying its captured CUDA graph
+    (:mod:`.graphs`); ``debug_mode()`` implies it, as JAX's
+    ``debug_nans`` re-runs a step un-jitted.  It is the only way to an
+    eager step on the card.
 
 Production runs skip all of this, like the reference's -DFAST: each op
 checked costs a host-device synchronisation.
@@ -30,6 +36,7 @@ from torch.overrides import TorchFunctionMode
 from .. import constants
 
 _active: list = []   # the debug modes entered, innermost last
+_eager: list = []    # the disable_jit blocks entered
 
 
 def _first_bad(value, nans: bool, infs: bool):
@@ -64,10 +71,30 @@ class _TrapNonFinite(TorchFunctionMode):
 
 
 @contextlib.contextmanager
+def disable_jit():
+    """Run every step inside the block eagerly on the card: no CUDA
+    graph is captured or replayed (``jax.disable_jit()``).  Profiler
+    ranges inside a step (``grtcode::line_prep``, ``grtcode::cloud_optics``,
+    ``grtcode::disort``) are recorded only when its Python code runs, so
+    a profile that reads them runs its step under this."""
+    _eager.append(True)
+    try:
+        yield
+    finally:
+        _eager.pop()
+
+
+def jit_disabled() -> bool:
+    """True inside :func:`disable_jit` or :func:`debug_mode`."""
+    return bool(_eager or _active)
+
+
+@contextlib.contextmanager
 def debug_mode(nans: bool = True, infs: bool = True):
     """Raise FloatingPointError at the torch op (or CUDA kernel) that
     first produces a NaN (``nans``) or an Inf (``infs``) inside the
-    block (debug.h:186-248 equivalent).  Expect a large slowdown."""
+    block (debug.h:186-248 equivalent).  Expect a large slowdown.  Steps
+    inside it run eagerly (it implies :func:`disable_jit`)."""
     mode = _TrapNonFinite(nans, infs)
     _active.append(mode)
     try:

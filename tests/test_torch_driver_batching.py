@@ -172,7 +172,8 @@ def test_column_chunk_spectral_output(model):
 
 def test_day_compaction_matches_per_column_runs(model, full, monkeypatch):
     """The lit columns run LW + SW and the night ones LW only (one step
-    each), equal to runs of one column each (global ids carried by
+    each, each padded to JAX's power-of-two bucket: 3 of 6 columns run as
+    4), equal to runs of one column each (global ids carried by
     ``col_index``); night SW is exactly 0."""
     _, driver, _, atm = model
     calls = []
@@ -184,7 +185,7 @@ def test_day_compaction_matches_per_column_runs(model, full, monkeypatch):
 
     monkeypatch.setattr(RadiationDriver, "_step", spy)
     res = driver.run(atm)
-    assert sorted(calls) == [(False, 3), (True, 3)]
+    assert sorted(calls) == [(False, 4), (True, 4)]
     monkeypatch.setattr(RadiationDriver, "_step", step)
     one = [driver.run(atm.subset([i]), col_index=[i])
            for i in range(atm.batch)]

@@ -11,10 +11,14 @@ fluxes on the card, and the library surface on the card: Optics.sample
 (views of the card's tensors, equal to striding) and rayleigh_optics
 against the CPU, the library path's hand-built step equal to the
 driver's, the headline benchmark's smoke run on the card (a valid JSON
-line, 11 K1 launches a step), the float64 solver check on the card, and
-the scatter method: on the card against the CPU (also beyond the
+line, 11 K1 launches a step), the float64 solver check on the card, the
+scatter method: on the card against the CPU (also beyond the
 line_sample tables' limits and on a block past the grid end), and K1
-against it on the card.
+against it on the card, and the captured steps: each path's replayed
+graph bit-identical to its eager step (line_sample, streamed bins,
+all-sky, DISORT), an eager step with no host sync, a new lit count in the
+same bucket replaying with no new capture, the launch counts advancing on
+replay, a failing capture raising, and the bench's step replayed.
 
 Every test is marked ``gpu`` and skips without a GPU.  The file imports no
 JAX, so it also runs where JAX is not installed; ``tests/conftest.py``
@@ -727,9 +731,10 @@ def test_bench_smoke_on_the_card(cuda, capsys):
     for key in ("peak_hbm_gib", "est_tflops", "est_share_of_f32_peak",
                 "kernel_bound_ms_per_step", "compile_first_s"):
         assert res[key] > 0, key
-    # One untimed and two timed steps of 11 K1 launches each.
+    # Two untimed steps (the warm-up, the capture) and two timed steps of
+    # 11 K1 launches each.
     assert res["kernel_launches_per_step"]["voigt_line_sample"] == 11
-    assert vk.accumulate_voigt.launches == 33
+    assert vk.accumulate_voigt.launches == 44
 
 
 def test_x64_validate_on_the_card(cuda, capsys):
@@ -795,3 +800,223 @@ def test_kernel_matches_scatter_on_the_card(cuda):
     hot_args = _scatter_gas(cuda, "line_sample", hot=True)[1]
     with pytest.raises(ValueError, match='method="scatter"'):
         k1.optical_depth(*hot_args)
+
+
+# ---------------------------------------------------------------------------
+# Captured steps: each driver or bench step on the card is a CUDA graph,
+# captured once per key and replayed (grtcode_tpu_torch/utils/graphs.py)
+# ---------------------------------------------------------------------------
+
+def _graph_path(name, device):
+    """(driver, atmosphere, run kwargs) of a path at smoke size."""
+    import dataclasses
+
+    if name in ("allsky", "disort"):
+        driver, atm = examples.allsky_like(smoke=True, device=device)
+        if name == "disort":
+            driver = dataclasses.replace(driver, sw_solver="disort",
+                                         disort_streams=4)
+        return driver, atm, {}
+    model, kw = {}, {}
+    if name == "streamed":
+        model, kw = dict(lw_method="wavenumber_sweep", lw_res=0.01), \
+            dict(spectral_chunks=3)
+    lw, sw, solar, batch, _, _ = examples.rfmip_like(smoke=True,
+                                                     device=device, **model)
+    return RadiationDriver(lw, sw, solar), examples.atmosphere(batch), kw
+
+
+def _tiers(res):
+    return {t: {k: v.clone() for k, v in fx.items()}
+            for t, fx in res.tiers.items()}
+
+
+@pytest.mark.parametrize("path", ["line_sample", "streamed", "allsky",
+                                  "disort"])
+def test_replay_equals_the_eager_step_bit_for_bit(cuda, path):
+    from grtcode_tpu_torch.utils import debug
+
+    driver, atm, kw = _graph_path(path, cuda)
+    with debug.disable_jit():
+        eager = _tiers(driver.run(atm, **kw))
+    assert len(driver._step_cache.entries) == 0
+    for i in range(3):               # warm-up, capture and replay, replay
+        got = _tiers(driver.run(atm, **kw))
+        for t in eager:
+            for k in eager[t]:
+                assert torch.equal(got[t][k], eager[t][k]), (t, k)
+        if i == 0:                                 # a run called once
+            assert len(driver._step_cache.entries) == 0
+    assert len(driver._step_cache.entries) == (1 if path in (
+        "line_sample", "streamed") else 2)     # smoke all-sky: 2 at night
+
+
+@pytest.mark.parametrize("path", ["line_sample", "streamed", "allsky",
+                                  "disort"])
+def test_eager_step_makes_no_host_sync(cuda, path, monkeypatch):
+    from grtcode_tpu_torch.utils import debug
+
+    driver, atm, kw = _graph_path(path, cuda)
+    with debug.disable_jit():
+        driver.run(atm, **kw)                 # builds the tables
+        body = RadiationDriver._step_body
+
+        def strict(self, *a, **k):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return body(self, *a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        monkeypatch.setattr(RadiationDriver, "_step_body", strict)
+        res = driver.run(atm, **kw)
+    assert torch.isfinite(res.tiers["csaf"]["rlu"]).all()
+
+
+def test_new_lit_count_in_the_bucket_replays(cuda):
+    import dataclasses
+
+    from grtcode_tpu_torch.utils import debug
+
+    lw, sw, solar, batch, _, _ = examples.rfmip_like(smoke=True,
+                                                     batch_size=16,
+                                                     device=cuda)
+    driver = RadiationDriver(lw, sw, solar)
+    atm = examples.atmosphere(batch)
+    runs, entries = {}, driver._step_cache.entries
+    for n_lit in (5, 6, 7):                   # lit bucket 8, night 16
+        mu = np.full(16, -0.3)
+        mu[:n_lit] = np.linspace(0.2, 0.9, n_lit)
+        a = dataclasses.replace(atm, cos_zenith=mu)
+        held = dict(entries)
+        runs[n_lit] = (a, _tiers(driver.run(a)))
+        # 5: the buckets' warm-up; 6: their capture; 7: replays alone.
+        assert len(entries) == (0 if n_lit == 5 else 2), n_lit
+        if n_lit == 7:
+            assert all(entries[k] is e for k, e in held.items())
+    for n_lit, (a, got) in runs.items():
+        with debug.disable_jit():
+            want = _tiers(driver.run(a))
+        for k in want["csaf"]:
+            assert torch.equal(got["csaf"][k], want["csaf"][k]), (n_lit, k)
+        assert not got["csaf"]["rsd"][n_lit:].any()
+
+
+def test_launch_counters_advance_on_replay(cuda):
+    driver, atm, _ = _graph_path("line_sample", cuda)
+    vk.accumulate_voigt.launches = 0
+    for i in range(3):
+        driver.run(atm)
+        assert vk.accumulate_voigt.launches == 11 * (i + 1)
+    (entry,) = driver._step_cache.entries.values()
+    assert entry.launches == {vk.accumulate_voigt: 11,   # K1, K2 captured
+                              bk.accumulate_bins_kernel: 0}
+    lw, sw, solar, batch, _, _ = examples.rfmip_like(
+        smoke=True, device=cuda, lw_method="wavenumber_sweep", lw_res=0.01)
+    streamed = RadiationDriver(lw, sw, solar)
+    k2 = bk.accumulate_bins_kernel.launches
+    for i in range(2):
+        streamed.run(examples.atmosphere(batch), spectral_chunks=3)
+        assert bk.accumulate_bins_kernel.launches - k2 == 21 * (i + 1)
+
+
+def test_failed_capture_raises(cuda):
+    from grtcode_tpu_torch.utils.graphs import CaptureError
+
+    driver, atm, _ = _graph_path("allsky", cuda)
+    callback = driver.cloud_optics
+
+    def syncing(cloud_args, key, w_lw, w_sw):
+        if float(cloud_args["cloud_fraction"].sum()) < 0:   # a host sync
+            raise AssertionError
+        return callback(cloud_args, key, w_lw, w_sw)
+
+    driver.cloud_optics = syncing
+    driver.run(atm)                     # the eager warm-up may sync
+    for _ in range(2):                  # never falls back, never caches
+        with pytest.raises(CaptureError, match="syncing"):
+            driver.run(atm)
+        assert len(driver._step_cache.entries) == 0
+    # The card and the driver's graph pool are usable after the failures.
+    assert torch.cuda.current_stream(cuda) == torch.cuda.default_stream(cuda)
+    driver.cloud_optics = callback       # another key: warm-up, capture
+    for _ in range(2):
+        res = driver.run(atm)
+    assert len(driver._step_cache.entries) == 2
+    assert torch.isfinite(res.tiers["af"]["rlu"]).all()
+
+
+def test_bench_step_replays_its_graph(cuda):
+    from grtcode_tpu_torch import bench
+    from grtcode_tpu_torch.utils import debug
+
+    lw, sw, solar, batch, _, _ = bench.build(smoke=True, device=cuda)
+    step = bench.make_step(lw, sw, solar)
+    chain = torch.zeros((), device=cuda)
+    with debug.disable_jit():
+        want = step(*bench.step_args(batch), chain)
+    assert len(step.cache.entries) == 0
+    k1 = vk.accumulate_voigt.launches
+    for _ in range(3):               # warm-up, capture and replay, replay
+        got = step(*bench.step_args(batch), chain)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert len(step.cache.entries) == 1
+    assert vk.accumulate_voigt.launches - k1 == 33
+
+
+def test_first_capture_turns_on_expandable_segments(cuda):
+    driver, atm, _ = _graph_path("line_sample", cuda)
+    for _ in range(2):
+        driver.run(atm)                      # warm-up, capture
+    pool = tuple(driver._step_cache.pool)
+    segments = [s for s in torch.cuda.memory_snapshot()
+                if tuple(s.get("segment_pool_id", ())) == pool]
+    assert segments and all(s.get("is_expandable") for s in segments)
+
+
+@pytest.mark.parametrize("where", ["warm-up", "capture"])
+def test_out_of_memory_drops_the_graphs(cuda, where, monkeypatch):
+    """A step that runs out of memory beside its cache's graphs drops
+    them and runs again.  At the warm-up the card's memory is capped at
+    what is reserved and 4 MiB more (the inputs' gathers); at the capture
+    the first capture asks for 64 TiB inside the graph."""
+    from grtcode_tpu_torch.utils import debug, graphs
+
+    driver, atm, _ = _graph_path("line_sample", cuda)   # 4 columns
+    with debug.disable_jit():
+        want = _tiers(driver.run(atm, column_chunk=3))  # chunks of 3, 1
+    for _ in range(2):
+        driver.run(atm)                      # warm-up, capture
+    assert len(driver._step_cache.entries) == 1
+    index = torch.cuda.current_device()
+    if where == "capture":
+        driver.run(atm, column_chunk=3)      # both chunks' warm-up
+        real, tries = graphs.CapturedStep, []
+
+        def capture(fn, inputs, **kw):
+            def hungry(x):
+                if not tries:
+                    tries.append(1)
+                    torch.empty(1 << 46, dtype=torch.uint8, device=cuda)
+                return fn(x)
+            return real(hungry, inputs, **kw)
+
+        monkeypatch.setattr(graphs, "CapturedStep", capture)
+        got = _tiers(driver.run(atm, column_chunk=3))
+        assert tries
+    else:
+        torch.cuda.synchronize(index)
+        torch.cuda.empty_cache()
+        total = torch.cuda.get_device_properties(index).total_memory
+        cap = torch.cuda.memory_reserved(index) + (4 << 20)
+        torch.cuda.set_per_process_memory_fraction(cap / total, index)
+        try:
+            got = _tiers(driver.run(atm, column_chunk=3))
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0, index)
+    for k in want["csaf"]:
+        assert torch.equal(got["csaf"][k], want["csaf"][k]), k
+    # The full batch's graph went; the chunks warmed up, or captured.
+    assert len(driver._step_cache.entries) == (2 if where == "capture"
+                                               else 0)
