@@ -257,10 +257,7 @@ def profile_step(step, eager=True):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from grtcode_tpu_torch.framework.driver import (CLOUD_OPTICS_RANGE,
-                                                    DISORT_RANGE)
-    from grtcode_tpu_torch.gas_optics.gas_optics import LINE_PREP_RANGE
-    from grtcode_tpu_torch.utils import debug
+    from grtcode_tpu_torch.utils import debug, metrics
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -276,8 +273,8 @@ def profile_step(step, eager=True):
     # The kernels launched inside each host-side range: every op below the
     # range's host event adds the kernels it launched itself, so each
     # kernel counts once.
-    ranged = {CLOUD_OPTICS_RANGE: ["cloud optics", 0.0, 0],
-              DISORT_RANGE: ["DISORT", 0.0, 0]}
+    ranged = {metrics.CLOUD_OPTICS: ["cloud optics", 0.0, 0],
+              metrics.DISORT: ["DISORT", 0.0, 0]}
     for e in prof.events():
         if e.name in ranged and e.device_type != DeviceType.CUDA:
             ranged[e.name][2] += 1
@@ -289,7 +286,7 @@ def profile_step(step, eager=True):
     for e in prof.key_averages():
         if e.key in ranged:
             continue
-        if e.key == LINE_PREP_RANGE:
+        if e.key == metrics.LINE_PREP:
             # The range appears twice: on the host, whose device time is
             # that of the kernels launched inside it, and as a device-side
             # annotation spanning first to last kernel, gaps included.
@@ -321,8 +318,8 @@ def profile_step(step, eager=True):
         if count:
             prep += (f", {label} ({count} calls) {ms:.1f} ms of kernels "
                      f"({ms / busy_ms:.1%} of busy)")
-    cloud_ms, cloud_count = ranged[CLOUD_OPTICS_RANGE][1:]
-    disort_ms, disort_count = ranged[DISORT_RANGE][1:]
+    cloud_ms, cloud_count = ranged[metrics.CLOUD_OPTICS][1:]
+    disort_ms, disort_count = ranged[metrics.DISORT][1:]
     rest_ms = busy_ms - sum(kernel_ms.values()) - prep_ms - cloud_ms - \
         disort_ms
     launches = sum(r[2] for r in rows)

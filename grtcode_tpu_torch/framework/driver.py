@@ -29,6 +29,14 @@ compaction pads the lit and the night columns to power-of-two buckets,
 as JAX does, so a new lit count in the same bucket replays the same
 graph.  On the CPU, and on the card under
 :func:`..utils.debug.disable_jit`, the step runs eagerly.
+
+Tracing (:mod:`..utils.metrics`): the driver's host work runs under the
+spans ``grtcode::run``, ``inputs``, ``surface_spectra``,
+``check_limits``, ``gather``, ``scatter`` and the step cache's
+``step_eager``, ``step_capture`` and ``step_replay``; the step's body
+under the device layers, ``grtcode::step`` around them all.
+:meth:`RadiationDriver.step_stats` reads the step cache's counts and the
+layers' device time in replays.
 """
 from __future__ import annotations
 
@@ -47,16 +55,12 @@ from ..solvers.rayleigh import rayleigh_tau
 from ..solvers.shortwave import shortwave_fluxes
 from ..solvers.solar_flux import SolarFlux
 from ..utils import curtis_godson as cg
-from ..utils import graphs, prng
+from ..utils import graphs, metrics, prng
 from ..utils.interp import (block_trapezoid_weights, interpolate_to_grid_np,
                             trapezoid_uniform)
 from .atmosphere import Atmosphere
 
 DIFFUSE_MU = 0.5  # cosine of the diffuse angle
-# Profiler ranges around each call of the cloud-optics callback and of
-# the discrete-ordinates solver.
-CLOUD_OPTICS_RANGE = "grtcode::cloud_optics"
-DISORT_RANGE = "grtcode::disort"
 
 
 @dataclasses.dataclass
@@ -178,27 +182,39 @@ class RadiationDriver:
         eagerly again, and the one after captures it."""
         self._step_cache.clear()
 
+    def step_stats(self) -> dict:
+        """The step cache's counts since the driver was made: ``eager``
+        (steps run op by op: a key's warm-up, every step on the CPU or
+        under ``disable_jit``), ``captures``, ``replays`` and ``dropped``
+        (graphs given back when a step ran out of memory); and the layers'
+        device time in the replays made inside
+        :func:`..utils.metrics.layer_times` blocks: ``layer_ms`` by layer
+        name summed over the ``timed`` replays, and the ``untimed`` ones.
+        A copy: two readings differ by what ran between them."""
+        return self._step_cache.stats()
+
     def _surface_spectra(self, atm: Atmosphere):
         """Emissivity / albedo on the solver grids (linear interpolation,
         constant extrapolation), all columns at once."""
-        B = atm.batch
-        if atm.emissivity is not None:
-            emis = interpolate_to_grid_np(
-                self.lw_gas.grid, atm.emissivity_grid,
-                np.asarray(atm.emissivity, np.float64),
-                extrapolate="constant")
-        else:
-            emis = np.ones((B, self.lw_gas.grid.n))
-        albedo = None
-        if self.sw_gas is not None:
-            if atm.albedo is not None:
-                albedo = interpolate_to_grid_np(
-                    self.sw_gas.grid, atm.albedo_grid,
-                    np.asarray(atm.albedo, np.float64),
+        with metrics.span(metrics.SURFACE_SPECTRA):
+            B = atm.batch
+            if atm.emissivity is not None:
+                emis = interpolate_to_grid_np(
+                    self.lw_gas.grid, atm.emissivity_grid,
+                    np.asarray(atm.emissivity, np.float64),
                     extrapolate="constant")
             else:
-                albedo = np.zeros((B, self.sw_gas.grid.n))
-        return emis, albedo
+                emis = np.ones((B, self.lw_gas.grid.n))
+            albedo = None
+            if self.sw_gas is not None:
+                if atm.albedo is not None:
+                    albedo = interpolate_to_grid_np(
+                        self.sw_gas.grid, atm.albedo_grid,
+                        np.asarray(atm.albedo, np.float64),
+                        extrapolate="constant")
+                else:
+                    albedo = np.zeros((B, self.sw_gas.grid.n))
+            return emis, albedo
 
     def run(self, atm: Atmosphere, integrated: bool = True, mesh=None,
             column_chunk: int | None = None, col_index=None,
@@ -219,13 +235,14 @@ class RadiationDriver:
         column shard and spectral block and gathers the whole batch on
         every rank (:meth:`_run_mesh`).
         """
-        ids = (np.arange(atm.batch) if col_index is None
-               else np.asarray(col_index))
-        col, cloud_args = self._inputs(atm, ids)
-        return self.run_columns(
-            col, atm.cos_zenith, cloud_args, clean=atm.clean,
-            clear=atm.clear, integrated=integrated, mesh=mesh,
-            column_chunk=column_chunk, spectral_chunks=spectral_chunks)
+        with metrics.span(metrics.RUN):
+            ids = (np.arange(atm.batch) if col_index is None
+                   else np.asarray(col_index))
+            col, cloud_args = self._inputs(atm, ids)
+            return self._run_columns(
+                col, atm.cos_zenith, cloud_args, clean=atm.clean,
+                clear=atm.clear, integrated=integrated, mesh=mesh,
+                column_chunk=column_chunk, spectral_chunks=spectral_chunks)
 
     def run_columns(self, col: dict, mu=None, cloud_args: dict | None = None,
                     *, clean: bool = True, clear: bool = True,
@@ -244,6 +261,14 @@ class RadiationDriver:
         numpy (B,) (None: no shortwave); ``cloud_args`` the all-sky state
         (needed unless ``clear``).
         """
+        with metrics.span(metrics.RUN):
+            return self._run_columns(
+                col, mu, cloud_args, clean=clean, clear=clear,
+                integrated=integrated, mesh=mesh, column_chunk=column_chunk,
+                spectral_chunks=spectral_chunks)
+
+    def _run_columns(self, col, mu, cloud_args, *, clean, clear, integrated,
+                     mesh, column_chunk, spectral_chunks) -> FluxResults:
         if self.sw_solver not in ("two_stream", "disort"):
             raise ValueError(f"sw_solver={self.sw_solver!r}: expected "
                              "'two_stream' or 'disort'")
@@ -284,8 +309,6 @@ class RadiationDriver:
                     for t in parts[0]}
 
         dev = self.device
-        idx = torch.as_tensor(rows, device=dev)
-        col, cloud_args = (_take(tree, idx) for tree in state[:2])
         mu = None if state[2] is None else state[2][rows]
         with_sw = (self.sw_gas is not None and mu is not None
                    and bool(np.any(mu > 0.0)))
@@ -300,27 +323,34 @@ class RadiationDriver:
                 # no SW work and add a night step, so the full batch runs
                 # with the day mask instead (as in JAX).
                 lit = night = None
+        with metrics.span(metrics.GATHER):
+            idx = torch.as_tensor(rows, device=dev)
+            col, cloud_args = (_take(tree, idx) for tree in state[:2])
+            if lit is not None:
+                # Day compaction: the lit columns run LW + SW, the night
+                # ones LW only, each padded to its bucket, and both
+                # scatter back.
+                lit_p, night_p = (torch.as_tensor(bucket_pad(i, rows.size),
+                                                  device=dev)
+                                  for i in (lit, night))
+                lit_in, night_in = ((_take(col, p), _take(cloud_args, p))
+                                    for p in (lit_p, night_p))
         if lit is None:
             return self._step(col, cloud_args, with_sw=with_sw, **step)
-        # Day compaction: the lit columns run LW + SW, the night ones LW
-        # only, each padded to its bucket, and both scatter back.
-        lit_p, night_p = (torch.as_tensor(bucket_pad(i, rows.size),
-                                          device=dev) for i in (lit, night))
-        out_lit = self._step(_take(col, lit_p), _take(cloud_args, lit_p),
-                             with_sw=True, **step)
-        out_night = self._step(_take(col, night_p),
-                               _take(cloud_args, night_p), with_sw=False,
-                               **step)
-        lit, night = (torch.as_tensor(i, device=dev) for i in (lit, night))
-        out = {}
-        for t, fluxes in out_lit.items():
-            out[t] = {}
-            for k, a_lit in fluxes.items():
-                full = torch.zeros((rows.size,) + a_lit.shape[1:],
-                                   dtype=a_lit.dtype, device=dev)
-                full[lit] = a_lit[:lit.numel()]
-                full[night] = out_night[t][k][:night.numel()]
-                out[t][k] = full
+        out_lit = self._step(*lit_in, with_sw=True, **step)
+        out_night = self._step(*night_in, with_sw=False, **step)
+        with metrics.span(metrics.SCATTER):
+            lit, night = (torch.as_tensor(i, device=dev)
+                          for i in (lit, night))
+            out = {}
+            for t, fluxes in out_lit.items():
+                out[t] = {}
+                for k, a_lit in fluxes.items():
+                    full = torch.zeros((rows.size,) + a_lit.shape[1:],
+                                       dtype=a_lit.dtype, device=dev)
+                    full[lit] = a_lit[:lit.numel()]
+                    full[night] = out_night[t][k][:night.numel()]
+                    out[t][k] = full
         return out
 
     def _run_mesh(self, state, batch, mesh, clean, clear, integrated,
@@ -375,60 +405,61 @@ class RadiationDriver:
     def _inputs(self, atm: Atmosphere, ids):
         """The batch's device tensors: the column state, and the cloud
         state with the columns' global ids (None for a clear sky)."""
-        dev = self.device
+        with metrics.span(metrics.INPUTS):
+            dev = self.device
 
-        def t(a):
-            return torch.as_tensor(np.array(a, np.float64),
-                                   dtype=torch.float32, device=dev)
+            def t(a):
+                return torch.as_tensor(np.array(a, np.float64),
+                                       dtype=torch.float32, device=dev)
 
-        def vmr(ppmv, keep=None):
-            return {k: t(np.asarray(v, np.float64) * 1e-6)
-                    for k, v in ppmv.items() if keep is None or k in keep}
+            def vmr(ppmv, keep=None):
+                return {k: t(np.asarray(v, np.float64) * 1e-6)
+                        for k, v in ppmv.items() if keep is None or k in keep}
 
-        emis, albedo = self._surface_spectra(atm)
-        col = {
-            "p_lev": t(atm.level_pressure),
-            "t_lev": t(atm.level_temperature),
-            "t_lay": t(atm.layer_temperature),
-            "t_surf": t(atm.surface_temperature),
-            "emis": t(emis),
-            "vmr_lw": vmr(atm.ppmv, self.lw_gas.molecules),
-            "cfc_vmr": vmr(atm.cfc_ppmv),
-            "cia_vmr": vmr(atm.cia_ppmv),
-        }
-        if self.sw_gas is not None:
-            col.update({
-                "mu": t(atm.cos_zenith if atm.cos_zenith is not None
-                        else -np.ones(atm.batch)),
-                "tsi": t(atm.total_solar_irradiance
-                         if atm.total_solar_irradiance is not None
-                         else np.zeros(atm.batch)),
-                "albedo": t(albedo),
-                "vmr_sw": vmr(atm.ppmv, self.sw_gas.molecules),
-            })
-        if not atm.clean:
-            col.update({
-                "aero_tau1um": t(atm.aerosol_optical_depth_1um),
-                "aero_alpha": t(np.broadcast_to(
-                    np.asarray(atm.aerosol_angstrom_exponent, np.float64),
-                    (atm.batch,))),
-                "aero_omega": t(atm.aerosol_single_scatter_albedo),
-                "aero_g": t(atm.aerosol_asymmetry_factor),
-            })
-        cloud_args = None
-        if not atm.clear:
-            p = np.asarray(atm.level_pressure, np.float64)
-            cloud_args = {
-                "col_index": torch.as_tensor(np.asarray(ids, np.int64),
-                                             device=dev),
-                "cloud_fraction": t(atm.cloud_fraction),
-                "liquid_water_content": t(atm.liquid_water_content),
-                "ice_water_content": t(atm.ice_water_content),
-                "layer_thickness": t(atm.layer_thickness),
-                "layer_pressure": t(0.5 * (p[:, :-1] + p[:, 1:])),
+            emis, albedo = self._surface_spectra(atm)
+            col = {
+                "p_lev": t(atm.level_pressure),
+                "t_lev": t(atm.level_temperature),
                 "t_lay": t(atm.layer_temperature),
+                "t_surf": t(atm.surface_temperature),
+                "emis": t(emis),
+                "vmr_lw": vmr(atm.ppmv, self.lw_gas.molecules),
+                "cfc_vmr": vmr(atm.cfc_ppmv),
+                "cia_vmr": vmr(atm.cia_ppmv),
             }
-        return col, cloud_args
+            if self.sw_gas is not None:
+                col.update({
+                    "mu": t(atm.cos_zenith if atm.cos_zenith is not None
+                            else -np.ones(atm.batch)),
+                    "tsi": t(atm.total_solar_irradiance
+                             if atm.total_solar_irradiance is not None
+                             else np.zeros(atm.batch)),
+                    "albedo": t(albedo),
+                    "vmr_sw": vmr(atm.ppmv, self.sw_gas.molecules),
+                })
+            if not atm.clean:
+                col.update({
+                    "aero_tau1um": t(atm.aerosol_optical_depth_1um),
+                    "aero_alpha": t(np.broadcast_to(
+                        np.asarray(atm.aerosol_angstrom_exponent, np.float64),
+                        (atm.batch,))),
+                    "aero_omega": t(atm.aerosol_single_scatter_albedo),
+                    "aero_g": t(atm.aerosol_asymmetry_factor),
+                })
+            cloud_args = None
+            if not atm.clear:
+                p = np.asarray(atm.level_pressure, np.float64)
+                cloud_args = {
+                    "col_index": torch.as_tensor(np.asarray(ids, np.int64),
+                                                 device=dev),
+                    "cloud_fraction": t(atm.cloud_fraction),
+                    "liquid_water_content": t(atm.liquid_water_content),
+                    "ice_water_content": t(atm.ice_water_content),
+                    "layer_thickness": t(atm.layer_thickness),
+                    "layer_pressure": t(0.5 * (p[:, :-1] + p[:, 1:])),
+                    "t_lay": t(atm.layer_temperature),
+                }
+            return col, cloud_args
 
     @staticmethod
     def _blocks(gas, S):
@@ -464,13 +495,15 @@ class RadiationDriver:
         :func:`..utils.debug.disable_jit` it runs eagerly.  The line_sample limits are checked on the inputs first.
         """
         gases = (self.lw_gas,) + ((self.sw_gas,) if with_sw else ())
-        for gas in {g.method: g for g in gases}.values():   # one per method
-            gas.check_limits(col["p_lev"], col["t_lev"])
+        with metrics.span(metrics.CHECK_LIMITS):
+            for gas in {g.method: g for g in gases}.values():  # per method
+                gas.check_limits(col["p_lev"], col["t_lev"])
         keys = None if clear else self._subcolumn_keys()
 
         def body(inputs):
-            return self._step_body(*inputs, keys, clean, clear, integrated,
-                                   with_sw, S, block)
+            with metrics.layer(metrics.STEP):
+                return self._step_body(*inputs, keys, clean, clear,
+                                       integrated, with_sw, S, block)
 
         key = (clean, clear, integrated, with_sw, S, block, self.sw_solver,
                self.disort_streams, self.num_subcolumns, self.cloud_seed,
@@ -505,9 +538,12 @@ class RadiationDriver:
             block = self._core(col, cloud_args, keys, clean, clear,
                                integrated, S, start_lw, size_lw, start_sw,
                                size_sw, sol)
-            total = block if total is None else {
-                t: {k: total[t][k] + v for k, v in fx.items()}
-                for t, fx in block.items()}
+            if total is None:
+                total = block
+                continue
+            with metrics.layer(metrics.INTEGRALS):
+                total = {t: {k: total[t][k] + v for k, v in fx.items()}
+                         for t, fx in block.items()}
         return total
 
     def _core(self, col, cloud_args, keys, clean, clear, integrated, S,
@@ -552,40 +588,45 @@ class RadiationDriver:
                 col["p_lev"], col["t_lev"], col["vmr_sw"],
                 cfc_vmr=col["cfc_vmr"], cia_vmr=col["cia_vmr"], check=False,
                 **window(start_sw, size_sw))
-            ray = rayleigh_tau(
-                cg.number_densities(col["p_lev"] * constants.MB_TO_ATM), w_sw)
-            gasray_sw = combine([
-                Optics.from_tau(tau_sw),
-                Optics(ray, torch.ones_like(ray), torch.zeros_like(ray))])
+            with metrics.layer(metrics.SW):
+                ray = rayleigh_tau(cg.number_densities(
+                    col["p_lev"] * constants.MB_TO_ATM), w_sw)
+                gasray_sw = combine([
+                    Optics.from_tau(tau_sw),
+                    Optics(ray, torch.ones_like(ray), torch.zeros_like(ray))])
             del tau_sw, ray
 
         def both(opt_lw, opt_sw):
-            flu, fld = longwave_fluxes(opt_lw.tau, opt_lw.omega,
-                                       col["t_surf"], col["t_lay"],
-                                       col["t_lev"], emis, w_lw)
-            out = {"rlu": reduce(flu, lwg, start_lw, size_lw),
-                   "rld": reduce(fld, lwg, start_lw, size_lw)}
+            with metrics.layer(metrics.LW_SOLVER):
+                flu, fld = longwave_fluxes(opt_lw.tau, opt_lw.omega,
+                                           col["t_surf"], col["t_lay"],
+                                           col["t_lev"], emis, w_lw)
+            with metrics.layer(metrics.INTEGRALS):
+                out = {"rlu": reduce(flu, lwg, start_lw, size_lw),
+                       "rld": reduce(fld, lwg, start_lw, size_lw)}
             del flu, fld
             if with_sw and self.sw_solver == "disort":
                 # The reference's --enable-disort swap: the discrete-
                 # ordinates solver in place of the two-stream one, on the
                 # same lit columns.
-                with torch.profiler.record_function(DISORT_RANGE):
+                with metrics.layer(metrics.DISORT):
                     fsu, fsd = disort_shortwave(
                         opt_sw.tau, opt_sw.omega, opt_sw.g, mu, albedo,
                         col["tsi"], sol_block, nstr=self.disort_streams)
             elif with_sw:
-                fsu, fsd = shortwave_fluxes(
-                    opt_sw.tau, opt_sw.omega, opt_sw.g, mu,
-                    torch.full_like(mu, DIFFUSE_MU), albedo, albedo_dif,
-                    col["tsi"], sol_block)
+                with metrics.layer(metrics.SW):
+                    fsu, fsd = shortwave_fluxes(
+                        opt_sw.tau, opt_sw.omega, opt_sw.g, mu,
+                        torch.full_like(mu, DIFFUSE_MU), albedo, albedo_dif,
+                        col["tsi"], sol_block)
             if with_sw:
                 # The day mask: a night column of a full batch gets zero
                 # shortwave (mu was clamped for the solvers).
-                day = (col["mu"] > 0.0).to(torch.float32)[:, None]
-                day = day if integrated else day[..., None]
-                out["rsu"] = reduce(fsu, swg, start_sw, size_sw) * day
-                out["rsd"] = reduce(fsd, swg, start_sw, size_sw) * day
+                with metrics.layer(metrics.INTEGRALS):
+                    day = (col["mu"] > 0.0).to(torch.float32)[:, None]
+                    day = day if integrated else day[..., None]
+                    out["rsu"] = reduce(fsu, swg, start_sw, size_sw) * day
+                    out["rsd"] = reduce(fsd, swg, start_sw, size_sw) * day
             else:
                 # Night columns: zeros, SW-block spectra in spectral output.
                 shape = out["rlu"].shape
@@ -615,7 +656,7 @@ class RadiationDriver:
             # spectral block; fluxes averaged over the subcolumns.
             subs = []
             for key in keys:
-                with torch.profiler.record_function(CLOUD_OPTICS_RANGE):
+                with metrics.layer(metrics.CLOUD_OPTICS):
                     liq_lw, ice_lw, liq_sw, ice_sw = self.cloud_optics(
                         cloud_args, key, w_lw, w_sw)
                 subs.append(both(

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from .. import constants
 from ..spectral import SpectralGrid
 from ..utils import curtis_godson as cg
+from ..utils import metrics
 from ..utils.graphs import device_constant
 from . import bins as bins_mod
 from . import lines as lines_mod
@@ -38,9 +39,6 @@ from .xsec import (CrossSectionTable, cfc_optical_depth,
 _K1_METHODS = ("tiled", "line_sample")   # K1 and its tables
 _BIN_METHODS = ("wavenumber_sweep", "line_sweep")
 _METHODS = _K1_METHODS + ("scatter",) + _BIN_METHODS
-# torch.profiler range around each molecule's line prep, so a trace shows
-# what the per-block recomputation of a streamed step costs.
-LINE_PREP_RANGE = "grtcode::line_prep"
 
 
 @dataclasses.dataclass
@@ -295,62 +293,69 @@ class GasOptics:
             x = lev(vmr[mol_id])
             psavg2, ns2 = cg.partial_pressures_and_densities(p2, x, n2d)
             psavg, ns = psavg2.reshape(rows), ns2.reshape(rows)
-            with torch.profiler.record_function(LINE_PREP_RANGE):
+            with metrics.layer(metrics.LINE_PREP):
                 prep = lines_mod.prepare(bound, self.grid, pavg, tavg, psavg,
                                          tips=self.tips)
-            if bin_method:
-                accumulate_bins_kernel(
-                    prep, ns, self._get_bin_ranges(mol_id), self.bins,
-                    start_bin=start_bin, nbins=nbins, tau0=tau_bins,
-                    bins_tau0=bins_tau)
-            elif self.method == "scatter":
-                optical_depth_line_sample(
-                    prep, ns, self.grid, cutoff=self.wcutoff,
-                    chunk=self.line_chunk, tau0=tau, start=start,
-                    block=None if block_size is None else nw)
-            else:
-                accumulate_voigt(prep, ns, self.chunk_ranges[mol_id],
-                                 num_wpoints=nw, dw=float(self.grid.dw),
-                                 fsteps=self._fsteps,
-                                 near=self.near_steps[mol_id],
-                                 num_global=self.grid.n, tau0=tau,
-                                 start=start)
+            with metrics.layer(metrics.VOIGT):
+                if bin_method:
+                    accumulate_bins_kernel(
+                        prep, ns, self._get_bin_ranges(mol_id), self.bins,
+                        start_bin=start_bin, nbins=nbins, tau0=tau_bins,
+                        bins_tau0=bins_tau)
+                elif self.method == "scatter":
+                    optical_depth_line_sample(
+                        prep, ns, self.grid, cutoff=self.wcutoff,
+                        chunk=self.line_chunk, tau0=tau, start=start,
+                        block=None if block_size is None else nw)
+                else:
+                    accumulate_voigt(prep, ns, self.chunk_ranges[mol_id],
+                                     num_wpoints=nw, dw=float(self.grid.dw),
+                                     fsteps=self._fsteps,
+                                     near=self.near_steps[mol_id],
+                                     num_global=self.grid.n, tau0=tau,
+                                     start=start)
             del prep
             if mol_id == int(MoleculeId.H2O) and self.h2o_ctm is not None:
                 ctm = self.h2o_ctm
-                tau += ctm.optical_depth(ns, pavg, tavg, psavg,
-                                         cs=spectral(ctm.cs),
-                                         cf=spectral(ctm.cf),
-                                         t0s=spectral(ctm.t0s),
-                                         t0f=spectral(ctm.t0f))
+                with metrics.layer(metrics.ABSORBERS):
+                    tau += ctm.optical_depth(ns, pavg, tavg, psavg,
+                                             cs=spectral(ctm.cs),
+                                             cf=spectral(ctm.cf),
+                                             t0s=spectral(ctm.t0s),
+                                             t0f=spectral(ctm.t0f))
             elif mol_id == int(MoleculeId.O3) and self.o3_ctm is not None:
-                tau += ns[:, None] * \
-                    spectral(self.o3_ctm.cross_section)[None, :]
+                with metrics.layer(metrics.ABSORBERS):
+                    tau += ns[:, None] * \
+                        spectral(self.o3_ctm.cross_section)[None, :]
 
-        for cfc_id, table in self.cfcs.items():
-            tau += cfc_optical_depth(
-                table, n2d, lev(cfc_vmr[cfc_id]),
-                xs=spectral(table.cross_section)).reshape(rows, nw)
-
-        for s1, s2, table in self.cias:
-            # Column factor pre-folded into the table (see add_cia).
-            tau += cia_optical_depth(
-                table, p2, tavg2, lev(cia_vmr[s1]), lev(cia_vmr[s2]),
-                xs=spectral(table.cross_section)).reshape(rows, nw)
+        if self.cfcs or self.cias:
+            with metrics.layer(metrics.ABSORBERS):
+                for cfc_id, table in self.cfcs.items():
+                    tau += cfc_optical_depth(
+                        table, n2d, lev(cfc_vmr[cfc_id]),
+                        xs=spectral(table.cross_section)).reshape(rows, nw)
+                for s1, s2, table in self.cias:
+                    # Column factor pre-folded into the table (add_cia).
+                    tau += cia_optical_depth(
+                        table, p2, tavg2, lev(cia_vmr[s1]),
+                        lev(cia_vmr[s2]),
+                        xs=spectral(table.cross_section)).reshape(rows, nw)
 
         if bin_method:
             # The coarse wings interpolate onto the fine grid after ALL
             # absorbers (launch.c:211-218), each bin from its own triple.
-            bl = torch.arange(start_bin, start_bin + nbins,
-                              device=self.device) * ppb
-            bins_mod.interpolate_bins(
-                bins_tau, bl, self._block_w_rel(start_bin, nbins), ppb=ppb,
-                last_ppb=self.bins.last_ppb, do_interp=self.bins.do_interp,
-                do_last_interp=self.bins.do_last_interp,
-                num_wpoints=nbins * ppb, tau=tau_bins, bin0=start_bin,
-                last_bin=self.bins.n - 1)
-            del bins_tau
-            tau += tau_bins[:, :nw]
+            with metrics.layer(metrics.BIN_INTERP):
+                bl = torch.arange(start_bin, start_bin + nbins,
+                                  device=self.device) * ppb
+                bins_mod.interpolate_bins(
+                    bins_tau, bl, self._block_w_rel(start_bin, nbins),
+                    ppb=ppb, last_ppb=self.bins.last_ppb,
+                    do_interp=self.bins.do_interp,
+                    do_last_interp=self.bins.do_last_interp,
+                    num_wpoints=nbins * ppb, tau=tau_bins, bin0=start_bin,
+                    last_bin=self.bins.n - 1)
+                del bins_tau
+                tau += tau_bins[:, :nw]
             del tau_bins
 
         tau = tau.reshape(B, nlayers, nw)

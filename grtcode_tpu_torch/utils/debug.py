@@ -73,10 +73,13 @@ class _TrapNonFinite(TorchFunctionMode):
 @contextlib.contextmanager
 def disable_jit():
     """Run every step inside the block eagerly on the card: no CUDA
-    graph is captured or replayed (``jax.disable_jit()``).  Profiler
-    ranges inside a step (``grtcode::line_prep``, ``grtcode::cloud_optics``,
-    ``grtcode::disort``) are recorded only when its Python code runs, so
-    a profile that reads them runs its step under this."""
+    graph is captured or replayed (``jax.disable_jit()``).  The layers'
+    profiler ranges inside a step (``grtcode::line_prep``,
+    ``grtcode::voigt``, ... : :data:`.metrics.LAYERS`) are recorded only
+    when its Python code runs, so a profile that reads the host ranges
+    runs its step under this.  The layers' device times come from the
+    replays instead (:func:`.metrics.layer_times`), which this block
+    turns off."""
     _eager.append(True)
     try:
         yield

@@ -21,7 +21,18 @@ A captured step owns:
   * the launches it captured of each dispatcher registered with
     :func:`count_launches`: a dispatcher's ``.launches`` count advances
     when its Python code runs, which a replay does not, so each replay
-    adds the launches its graph holds.
+    adds the launches its graph holds;
+  * the timing events of the layers it captured
+    (:func:`.metrics.layer`), read inside a :func:`.metrics.layer_times`
+    block into its cache's :class:`.metrics.LayerTimes`.
+
+What a trace sees.  Host ranges inside a step (the layers of
+:mod:`.metrics`) are recorded where the step's Python runs, at its eager
+call and its capture; the device time of each layer comes from the
+replays' timing events.  The cache's own spans (``grtcode::step_eager``,
+``grtcode::step_capture``, ``grtcode::step_replay``) are recorded on
+every call, and :attr:`StepCache.counts` counts its eager calls,
+captures, replays and the graphs it dropped.
 
 Memory.  A graph keeps its pool's memory for as long as it lives, so the
 first capture of a process turns on the allocator's expandable segments
@@ -53,7 +64,7 @@ import warnings
 
 import torch
 
-from . import debug
+from . import debug, metrics
 
 _TORCH_DIR = os.path.dirname(os.path.abspath(torch.__file__))
 _constants: dict = {}
@@ -179,13 +190,19 @@ class CapturedStep:
     tensors of the captured signature) into the static inputs, replays
     the graph, adds its captured launches (``launches``, by registered
     dispatcher) to their counts and returns clones of its outputs.
-    ``capture_s`` is the host seconds of its capture.  ``fn`` must have
-    run once on inputs of this signature outside any graph (its
-    warm-up)."""
+    ``capture_s`` is the host seconds of its capture; ``layers`` the
+    ``(name, start, end)`` timing events of the layers it captured,
+    whose replays add to ``times`` inside a :func:`.metrics.layer_times`
+    block.  ``fn`` must have run once on inputs of this signature
+    outside any graph (its warm-up)."""
 
-    def __init__(self, fn, inputs, *, pool=None, label: str = "step"):
-        device = _leaves(inputs)[0].device
+    _unread = False      # a replay inside a layer_times block not yet read
+
+    def __init__(self, fn, inputs, *, pool=None, label: str = "step",
+                 times: metrics.LayerTimes | None = None):
+        self.device = device = _leaves(inputs)[0].device
         self.label, self.signature = label, signature(inputs)
+        self.times = metrics.LayerTimes() if times is None else times
         counted = list(_counted)
         before = [f.launches for f in counted]
         self.static_inputs = _map(torch.clone, inputs)
@@ -194,7 +211,7 @@ class CapturedStep:
         self.graph = torch.cuda.CUDAGraph()
         capture = torch.cuda.graph(self.graph, pool=pool)
         try:
-            with capture:
+            with metrics.capturing_layers() as self.layers, capture:
                 self.static_outputs = fn(self.static_inputs)
         except Exception as err:
             _abandon(capture, device, pool)
@@ -220,10 +237,28 @@ class CapturedStep:
                              f"captured graph's {self.signature}")
         for dst, src in zip(self._inputs, _leaves(inputs)):
             dst.copy_(src)
+        self.read_layers()
         self.graph.replay()
+        unread = metrics.unread_replays()
+        if unread is not None and self.layers:
+            self._unread = True
+            unread[id(self)] = self
         for f, n in self.launches.items():
             f.launches += n
         return _map(torch.clone, self.static_outputs)
+
+    def read_layers(self) -> None:
+        """Add the last replay's layer times to ``times`` if its last
+        event has completed, else count the replay untimed; nothing if
+        that replay was read already or made outside a
+        :func:`.metrics.layer_times` block."""
+        if not self._unread:
+            return
+        self._unread = False
+        if self.layers[-1][2].query():
+            self.times.add(self.layers)
+        else:
+            self.times.untimed += 1
 
 
 def _out_of_memory(err: BaseException) -> bool:
@@ -241,12 +276,29 @@ class StepCache:
     eagerly.  On the card the key is ``key`` plus the inputs'
     :func:`signature`: its first call runs eagerly (the warm-up), its
     second captures a :class:`CapturedStep` and replays it, and later
-    calls replay."""
+    calls replay.
+
+    ``counts`` adds one per call run eagerly (a key's warm-up, or any
+    call on the CPU or under ``disable_jit``), per capture, per replay
+    (the capturing call replays too) and per graph dropped when a step
+    ran out of memory; ``times`` sums its steps' layer times
+    (:func:`.metrics.layer_times`).  :meth:`stats` reads both."""
 
     def __init__(self):
         self.entries = {}      # key -> CapturedStep
         self.seen = set()      # keys whose eager warm-up has run
         self.pool = None
+        self.counts = {"eager": 0, "captures": 0, "replays": 0,
+                       "dropped": 0}
+        self.times = metrics.LayerTimes()
+
+    def stats(self) -> dict:
+        """A copy of ``counts``, with the replays whose layers were timed
+        (``timed``) or not (``untimed``) and the device ms of each layer
+        summed over the timed ones (``layer_ms``)."""
+        return dict(self.counts, timed=self.times.timed,
+                    untimed=self.times.untimed,
+                    layer_ms=dict(self.times.ms))
 
     def clear(self) -> None:
         """Drop every captured step and give their memory back to the card
@@ -266,7 +318,7 @@ class StepCache:
 
     def __call__(self, key, fn, inputs, label: str = "step"):
         if self.eager(inputs):
-            return fn(inputs)
+            return self._eager(fn, inputs)
         key = key + (signature(inputs),)
         try:
             return self._call(key, fn, inputs, label)
@@ -275,29 +327,45 @@ class StepCache:
                 raise
         # Out of memory while this cache holds graphs: drop them, and the
         # failed call's frames, and run once more.
+        self.counts["dropped"] += len(self.entries)
         self.entries.clear()
         self.pool = None
         gc.collect()
         torch.cuda.empty_cache()
         return self._call(key, fn, inputs, label)
 
+    def _eager(self, fn, inputs):
+        with metrics.span(metrics.STEP_EAGER):
+            out = fn(inputs)
+        self.counts["eager"] += 1
+        return out
+
+    def _replay(self, entry, inputs):
+        with metrics.span(metrics.STEP_REPLAY):
+            out = entry(inputs)
+        self.counts["replays"] += 1
+        return out
+
     def _call(self, key, fn, inputs, label):
         entry = self.entries.get(key)
         if entry is not None:
-            return entry(inputs)
+            return self._replay(entry, inputs)
         if key not in self.seen:
-            out = fn(inputs)           # the warm-up, eagerly
+            out = self._eager(fn, inputs)       # the warm-up
             self.seen.add(key)
             return out
         _expandable_segments()
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
         try:
-            entry = CapturedStep(fn, inputs, pool=self.pool, label=label)
+            with metrics.span(metrics.STEP_CAPTURE):
+                entry = CapturedStep(fn, inputs, pool=self.pool,
+                                     label=label, times=self.times)
         except CaptureError:
             # The allocator refuses further captures into the pool of a
             # failed one: later captures take a new pool.
             self.pool = None
             raise
+        self.counts["captures"] += 1
         self.entries[key] = entry
-        return entry(inputs)
+        return self._replay(entry, inputs)

@@ -1,5 +1,6 @@
-"""Observability: phase timers, throughput counters, profiler traces (port
-of grtcode_tpu/utils/metrics.py).
+"""Observability: phase timers, throughput counters, profiler traces,
+and the program's own spans and layers (port of
+grtcode_tpu/utils/metrics.py).
 
 The reference's only tracing is its kernel-launch logging at INFO
 verbosity (utilities/src/debug.h:281-282, 359-360).  Here the grid-points/s
@@ -7,7 +8,23 @@ metric is a first-class counter, phases are wall-clock timed after the
 result's CUDA device has finished its queued work, and a context manager
 wraps ``torch.profiler`` for on-demand traces in Chrome's trace format.
 
-Everything here is host-side and costs nothing when unused.
+Spans and layers.  The driver marks its host work with :func:`span`, a
+``torch.profiler.record_function`` range (``SPANS``): a profiler records
+it on every call, on the same clock as the device's kernels, so an idle
+gap of the device falls under the span that made it.  The step's body
+marks its parts with :func:`layer` (``LAYERS``), also a range, which a
+profiler records only where the body's Python runs: an eager call or a
+capture, never a replay.  While a CUDA graph is being captured a layer
+also records a timing event at its entry and its exit; the events become
+nodes of the graph, so every replay stamps them on the device.  Inside a
+:func:`layer_times` block each captured step reads its previous replay's
+stamps before it replays again, and the block reads the last replays on
+leaving: the device milliseconds of each layer, summed into the step
+cache's :class:`LayerTimes` (``RadiationDriver.step_stats()``).  Outside
+the block nothing is read.
+
+Everything here is host-side and costs nothing when unused, but for the
+layers' timing events, which a capture records into its graph.
 """
 from __future__ import annotations
 
@@ -20,6 +37,120 @@ import time
 import torch
 
 log = logging.getLogger("grtcode_tpu_torch")
+
+# Host spans (RadiationDriver and its step cache), innermost last.
+RUN = "grtcode::run"                        # RadiationDriver.run, run_columns
+INPUTS = "grtcode::inputs"                  # the inputs' copies to the device
+SURFACE_SPECTRA = "grtcode::surface_spectra"    # inside INPUTS
+CHECK_LIMITS = "grtcode::check_limits"      # the line_sample limits, a sync
+GATHER = "grtcode::gather"                  # rows and compaction buckets
+SCATTER = "grtcode::scatter"                # compaction's scatter-back
+STEP_EAGER = "grtcode::step_eager"          # a step run op by op
+STEP_CAPTURE = "grtcode::step_capture"      # a step captured as a graph
+STEP_REPLAY = "grtcode::step_replay"        # copies in, replay, clones out
+SPANS = (RUN, INPUTS, SURFACE_SPECTRA, CHECK_LIMITS, GATHER, SCATTER,
+         STEP_EAGER, STEP_CAPTURE, STEP_REPLAY)
+
+# Device layers of a step's body; STEP holds the others and the time in
+# none of them.
+STEP = "grtcode::step"
+LINE_PREP = "grtcode::line_prep"            # lines.prepare, per molecule
+VOIGT = "grtcode::voigt"                    # K1, K2 or the scatter sum
+ABSORBERS = "grtcode::absorbers"            # continua, CFC and CIA
+BIN_INTERP = "grtcode::bin_interp"          # the bin methods' wings
+LW_SOLVER = "grtcode::lw_solver"            # longwave_fluxes
+INTEGRALS = "grtcode::integrals"            # spectral integrals, block sums
+SW = "grtcode::sw"                          # Rayleigh, two-stream solver
+CLOUD_OPTICS = "grtcode::cloud_optics"      # the all-sky tier's callback
+DISORT = "grtcode::disort"                  # the discrete-ordinates solver
+LAYERS = (STEP, LINE_PREP, VOIGT, ABSORBERS, BIN_INTERP, LW_SOLVER,
+          INTEGRALS, SW, CLOUD_OPTICS, DISORT)
+
+_capturing: list = []   # the layer events of each capture in progress
+_reading: list = []     # each open layer_times() block's unread steps
+
+
+def span(name: str):
+    """The host span ``name`` (one of ``SPANS``): a profiler range."""
+    return torch.profiler.record_function(name)
+
+
+@contextlib.contextmanager
+def layer(name: str):
+    """The device layer ``name`` (one of ``LAYERS``): a profiler range
+    and, while a :func:`capturing_layers` capture runs on the current
+    stream, a timing event at entry and one at exit, kept as ``(name,
+    start, end)`` with the capture's events.  No two layers share an
+    event."""
+    with torch.profiler.record_function(name):
+        if not (_capturing and torch.cuda.is_current_stream_capturing()):
+            yield
+            return
+        start = torch.cuda.Event(enable_timing=True, external=True)
+        start.record()
+        yield
+        end = torch.cuda.Event(enable_timing=True, external=True)
+        end.record()
+        _capturing[-1].append((name, start, end))
+
+
+@contextlib.contextmanager
+def capturing_layers():
+    """Collects, in the list it yields, the ``(name, start, end)`` events
+    of the layers that a graph capture inside the block records."""
+    marks = []
+    _capturing.append(marks)
+    try:
+        yield marks
+    finally:
+        _capturing.pop()
+
+
+class LayerTimes:
+    """Device milliseconds by layer, summed over the timed replays of
+    captured steps; ``untimed`` counts replays whose events had not
+    completed when the step replayed again."""
+
+    def __init__(self):
+        self.ms: dict = {}
+        self.timed = 0
+        self.untimed = 0
+
+    def add(self, marks) -> None:
+        """Add one replay's ``(name, start, end)`` events, all
+        completed."""
+        for name, start, end in marks:
+            self.ms[name] = self.ms.get(name, 0.0) + start.elapsed_time(end)
+        self.timed += 1
+
+
+def unread_replays():
+    """The innermost open :func:`layer_times` block's unread steps (a
+    dict a step adds itself to after a replay), or None outside one."""
+    return _reading[-1] if _reading else None
+
+
+@contextlib.contextmanager
+def layer_times():
+    """Read the device time of each layer in the replays of captured
+    steps inside the block.  Before each replay a step adds its previous
+    replay's times if that replay's last event has completed (a query,
+    which never blocks), else counts the replay untimed; on leaving, the
+    block synchronises once and reads each step's last replay.  Outside
+    such a block a replay reads nothing."""
+    unread = {}
+    _reading.append(unread)
+    try:
+        yield
+    finally:
+        _reading.pop()
+        # A step of a nested block that the inner block read is no
+        # longer unread here.
+        steps = [step for step in unread.values() if step._unread]
+        for device in {step.device for step in steps}:
+            torch.cuda.synchronize(device)
+        for step in steps:
+            step.read_layers()
 
 
 @dataclasses.dataclass

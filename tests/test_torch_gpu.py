@@ -18,7 +18,9 @@ against it on the card, and the captured steps: each path's replayed
 graph bit-identical to its eager step (line_sample, streamed bins,
 all-sky, DISORT), an eager step with no host sync, a new lit count in the
 same bucket replaying with no new capture, the launch counts advancing on
-replay, a failing capture raising, and the bench's step replayed.
+replay, a failing capture raising, and the bench's step replayed; and the
+layers' device times read from a replay's timing events, against the
+profiler's kernel times, and the driver's step counts.
 
 Every test is marked ``gpu`` and skips without a GPU.  The file imports no
 JAX, so it also runs where JAX is not installed; ``tests/conftest.py``
@@ -1020,3 +1022,87 @@ def test_out_of_memory_drops_the_graphs(cuda, where, monkeypatch):
     # The full batch's graph went; the chunks warmed up, or captured.
     assert len(driver._step_cache.entries) == (2 if where == "capture"
                                                else 0)
+
+
+# ---------------------------------------------------------------------------
+# Layer times: timing events captured in a step's graph, read in replays
+# (grtcode_tpu_torch/utils/metrics.py)
+# ---------------------------------------------------------------------------
+
+def _kernel_ms(prof):
+    """Device ms of the kernels (not copies, fills or ranges) in a
+    profile."""
+    ns = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA or \
+                e.is_user_annotation() or \
+                e.name().startswith(("Memcpy", "Memset")):
+            continue
+        ns += e.duration_ns()
+    return ns * 1e-6
+
+
+def test_layer_times_of_replays_match_the_kernels(cuda):
+    """A step of two layers, one matmul and three, captured and replayed
+    five times inside layer_times(), each replay waited for as a caller
+    that reads its outputs does: the layers' device ms against the
+    profiler's kernel times of those replays, within 5 %."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from grtcode_tpu_torch.utils import graphs, metrics
+
+    x = torch.randn(4096, 4096, device=cuda)
+
+    def step(inputs):
+        (a,) = inputs
+        with metrics.layer(metrics.STEP):
+            with metrics.layer("one"):
+                b = a @ a
+            with metrics.layer("three"):
+                c = b @ a
+                c = c @ a
+                c = c @ a
+        return b, c
+
+    cache = graphs.StepCache()
+    for _ in range(2):                          # warm-up, capture
+        cache(("mm",), step, (x,))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof, \
+            metrics.layer_times():
+        for _ in range(5):
+            cache(("mm",), step, (x,))
+            torch.cuda.synchronize()
+    stats = cache.stats()
+    assert (stats["eager"], stats["captures"], stats["replays"]) == (1, 1, 6)
+    assert (stats["timed"], stats["untimed"]) == (5, 0)
+    ms, kernels = stats["layer_ms"], _kernel_ms(prof)
+    assert ms["one"] + ms["three"] == pytest.approx(kernels, rel=0.05)
+    assert ms["one"] == pytest.approx(kernels / 4, rel=0.05)
+    assert ms["three"] == pytest.approx(3 * kernels / 4, rel=0.05)
+    assert ms["one"] + ms["three"] <= ms[metrics.STEP] <= 1.05 * kernels
+
+
+def test_driver_step_stats_on_replay(cuda):
+    """The driver's counts for a key's three calls, and each layer of the
+    line_sample step timed in its replays inside layer_times()."""
+    from grtcode_tpu_torch.utils import metrics
+
+    driver, atm, _ = _graph_path("line_sample", cuda)
+    with metrics.layer_times():
+        for _ in range(3):                 # warm-up, capture, replay
+            driver.run(atm)
+    stats = driver.step_stats()
+    assert {k: stats[k] for k in ("eager", "captures", "replays", "dropped",
+                                  "timed", "untimed")} == dict(
+        eager=1, captures=1, replays=2, dropped=0, timed=2, untimed=0)
+    ms = stats["layer_ms"]
+    assert set(ms) == {metrics.STEP, metrics.LINE_PREP, metrics.VOIGT,
+                       metrics.ABSORBERS, metrics.LW_SOLVER,
+                       metrics.INTEGRALS, metrics.SW}
+    assert all(v > 0 for v in ms.values())
+    assert sum(v for k, v in ms.items() if k != metrics.STEP) < \
+        ms[metrics.STEP]
+    driver.run(atm)                        # outside the block: not read
+    assert driver.step_stats()["timed"] == 2

@@ -208,7 +208,7 @@ class _EagerCapture:
 
     made = []   # the captured steps' column counts
 
-    def __init__(self, fn, inputs, *, pool=None, label="step"):
+    def __init__(self, fn, inputs, *, pool=None, label="step", times=None):
         self.fn = fn
         first = inputs[0]
         _EagerCapture.made.append(first["t_lev"].shape[0]
@@ -330,6 +330,51 @@ def test_out_of_memory_drops_the_graphs_and_runs_again(where, monkeypatch):
     assert len(cache.entries) == 1
 
 
+def test_step_cache_counts_each_call(monkeypatch):
+    """A key's first, second and third calls: eager / captures / replays /
+    dropped 1/0/0/0, 1/1/1/0, 1/1/2/0, each call under its span; then an
+    out-of-memory warm-up drops the one graph; eager steps count too."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from grtcode_tpu_torch.utils import metrics
+
+    _stub_capture(monkeypatch)
+    cache = graphs.StepCache()
+    x = torch.arange(3.0)
+
+    def step(inputs):
+        return (inputs[0] * 2.0,)
+
+    spans = {}
+    for want in ((1, 0, 0, 0), (1, 1, 1, 0), (1, 1, 2, 0)):
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            cache(("a",), step, (x,))
+        got = cache.stats()
+        assert tuple(got[k] for k in ("eager", "captures", "replays",
+                                      "dropped")) == want
+        assert (got["timed"], got["untimed"], got["layer_ms"]) == (0, 0, {})
+        spans[want] = sorted(e.name for e in prof.events()
+                             if e.name in metrics.SPANS)
+    assert list(spans.values()) == [
+        [metrics.STEP_EAGER], [metrics.STEP_CAPTURE, metrics.STEP_REPLAY],
+        [metrics.STEP_REPLAY]]
+    fails = [True]
+
+    def failing(inputs):
+        if fails and fails.pop():
+            _oom()
+        return step(inputs)
+
+    cache(("b",), failing, (x,))         # out of memory, drops a's graph
+    assert cache.counts == {"eager": 2, "captures": 1, "replays": 2,
+                            "dropped": 1}
+    assert not cache.entries
+    monkeypatch.setattr(graphs.StepCache, "eager",
+                        staticmethod(lambda inputs: True))
+    cache(("a",), step, (x,))
+    assert cache.counts["eager"] == 3 and not cache.entries
+
+
 @pytest.mark.parametrize("conf", [None, "expandable_segments:False",
                                   "max_split_size_mb:64"])
 def test_first_capture_sets_expandable_segments(conf, monkeypatch):
@@ -350,14 +395,6 @@ def test_first_capture_sets_expandable_segments(conf, monkeypatch):
         cache(("b",), lambda inputs: (inputs[0] + 1.0,), (x,))
         assert set_to == ([] if i == 0 or conf == "expandable_segments:False"
                           else ["expandable_segments:True"])
-
-
-def test_memory_probe_needs_the_card(monkeypatch):
-    from grtcode_tpu_torch import memory_probe
-
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(SystemExit, match="needs a CUDA device"):
-        memory_probe.main(["--batch", "2"])
 
 
 def test_replay_adds_every_registered_dispatchers_launches():

@@ -1,0 +1,233 @@
+"""The port's own tracing, on the CPU (grtcode_tpu_torch/utils/metrics.py):
+
+* the driver's host spans: each once a call under its parent, for a
+  one-band call and a compacted two-band call (whose two steps each
+  check limits and run), and the layers of the step's body under
+  ``grtcode::step``;
+* ``metrics.layer``: a profiler range always, and a timing event at
+  entry and at exit only while a capture runs;
+* ``metrics.layer_times``: a captured step's replays add their layers'
+  times when the last event has completed, count the replay untimed
+  when it has not, and the block reads the last replay on leaving, with
+  one synchronisation; outside the block nothing is read; a replay
+  inside nested blocks is read once, by the innermost block;
+* the names of the spans and layers.
+
+The step cache's counts are in tests/test_torch_graph_step.py; a
+captured step's layer times against the profiler's kernel times, on the
+card, in tests/test_torch_gpu.py.
+"""
+import collections
+import dataclasses
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), os.pardir))
+
+from grtcode_tpu_torch import examples  # noqa: E402
+from grtcode_tpu_torch.framework.driver import RadiationDriver  # noqa: E402
+from grtcode_tpu_torch.utils import graphs, metrics  # noqa: E402
+
+PARENT = {metrics.RUN: None, metrics.INPUTS: metrics.RUN,
+          metrics.SURFACE_SPECTRA: metrics.INPUTS,
+          metrics.CHECK_LIMITS: metrics.RUN, metrics.GATHER: metrics.RUN,
+          metrics.SCATTER: metrics.RUN, metrics.STEP_EAGER: metrics.RUN,
+          metrics.STEP: metrics.STEP_EAGER}
+
+
+@pytest.fixture(scope="module")
+def model():
+    lw, sw, solar, batch, _, _ = examples.rfmip_like(smoke=True,
+                                                     device="cpu")
+    return lw, sw, solar, examples.atmosphere(batch)
+
+
+def _spans(fn):
+    """(count, parent span) of each ``grtcode::`` range that ``fn()``
+    records."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    seen = collections.Counter()
+    for e in prof.events():
+        if not e.name.startswith("grtcode::"):
+            continue
+        up = e.cpu_parent
+        while up is not None and not up.name.startswith("grtcode::"):
+            up = up.cpu_parent
+        seen[(e.name, None if up is None else up.name)] += 1
+    return seen
+
+
+@pytest.mark.parametrize("case", ["one_band", "compacted_two_band"])
+def test_driver_spans_once_a_call_under_their_parents(model, case):
+    lw, sw, solar, atm = model
+    if case == "one_band":
+        driver, steps = RadiationDriver(lw), 1
+    else:
+        driver, steps = RadiationDriver(lw, sw, solar), 2
+        mu = np.full(atm.batch, -0.4)
+        mu[0] = 0.6                  # lit bucket 1 and night bucket 4
+        atm = dataclasses.replace(atm, cos_zenith=mu)
+    for _ in range(2):               # a second call records the same
+        seen = _spans(lambda: driver.run(atm))
+        want = {metrics.RUN: 1, metrics.INPUTS: 1,
+                metrics.SURFACE_SPECTRA: 1, metrics.GATHER: 1,
+                metrics.SCATTER: steps - 1, metrics.CHECK_LIMITS: steps,
+                metrics.STEP_EAGER: steps, metrics.STEP: steps}
+        for name, n in want.items():
+            assert seen[(name, PARENT[name])] == n, name
+        spans = {name for name, _ in seen if name in metrics.SPANS}
+        assert spans == {k for k, n in want.items()
+                         if n and k in metrics.SPANS}
+        # The body's layers, each under the step.
+        layers = collections.Counter()
+        for (name, parent), n in seen.items():
+            if name in metrics.LAYERS and name != metrics.STEP:
+                assert parent == metrics.STEP, name
+                layers[name] += n
+        # The night step runs the longwave alone, the lit step both bands.
+        mols = steps * len(lw.molecules) + (steps - 1) * len(sw.molecules)
+        assert layers[metrics.LINE_PREP] == layers[metrics.VOIGT] == mols
+        assert layers[metrics.LW_SOLVER] == steps
+        assert layers[metrics.SW] == (2 if steps == 2 else 0)
+    assert driver.step_stats()["eager"] == 2 * steps
+
+
+class _Event:
+    """torch.cuda.Event's stand-in: ``t`` is its stamp in ms."""
+
+    made = []
+
+    def __init__(self, enable_timing=False, external=False):
+        assert enable_timing and external
+        self.t, self.done, self.recorded = 0.0, True, 0
+        _Event.made.append(self)
+
+    def record(self):
+        self.recorded += 1
+
+    def query(self):
+        return self.done
+
+    def elapsed_time(self, end):
+        assert self.done and end.done
+        return end.t - self.t
+
+
+def test_layer_records_events_only_in_a_capture(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    _Event.made = []
+    with metrics.layer(metrics.VOIGT):       # no capture: no event
+        pass
+    assert not _Event.made
+    with metrics.capturing_layers() as marks:
+        with metrics.layer(metrics.STEP):
+            with metrics.layer(metrics.LINE_PREP):
+                pass
+            with metrics.layer(metrics.VOIGT):
+                pass
+    assert [m[0] for m in marks] == [metrics.LINE_PREP, metrics.VOIGT,
+                                     metrics.STEP]
+    events = [e for m in marks for e in m[1:]]
+    assert len(set(map(id, events))) == 6 == len(_Event.made)
+    assert all(e.recorded == 1 for e in events)
+    assert not metrics._capturing
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    with metrics.capturing_layers() as marks:   # not the capture stream
+        with metrics.layer(metrics.STEP):
+            pass
+    assert not marks
+
+
+def _timed_step(times):
+    """A captured step (graph stubbed) with a step layer around a voigt
+    layer; each replay stamps its events 100 ms after the last one's."""
+    entry = graphs.CapturedStep.__new__(graphs.CapturedStep)
+    entry.label, entry.signature = "step", graphs.signature(())
+    entry._inputs, entry.static_outputs, entry.launches = [], (), {}
+    entry.device, entry.times = torch.device("cpu"), times
+    s0, v0, v1, s1 = (_Event(True, True) for _ in range(4))
+    entry.layers = [(metrics.VOIGT, v0, v1), (metrics.STEP, s0, s1)]
+    stamps = {"t": 0.0}
+
+    def replay(_):
+        t = stamps["t"]
+        s0.t, v0.t, v1.t, s1.t = t, t + 1.0, t + 4.0, t + 5.5
+        stamps["t"] += 100.0
+    entry.graph = type("G", (), {"replay": replay})()
+    return entry, s1
+
+
+def test_layer_times_sums_skips_and_flushes(monkeypatch):
+    synced = []
+    monkeypatch.setattr(torch.cuda, "synchronize", synced.append)
+    times = metrics.LayerTimes()
+    entry, last = _timed_step(times)
+    entry(())                                 # outside the block
+    assert times.timed == times.untimed == 0 and not entry._unread
+    with metrics.layer_times():
+        entry(())                             # replay 1
+        entry(())                             # reads 1, replays 2
+        assert times.timed == 1 and not synced
+        last.done = False                     # replay 2 still running
+        entry(())                             # 2 untimed, replays 3
+        assert (times.timed, times.untimed) == (1, 1)
+        last.done = True
+    assert synced == [torch.device("cpu")]    # one sync, then replay 3
+    assert (times.timed, times.untimed) == (2, 1)
+    assert times.ms == {metrics.VOIGT: 6.0, metrics.STEP: 11.0}
+    assert not entry._unread and not metrics._reading
+    entry(())                                 # outside again: no read
+    assert times.timed == 2 and synced == [torch.device("cpu")]
+
+
+def test_nested_layer_times_read_each_replay_once(monkeypatch):
+    synced = []
+    monkeypatch.setattr(torch.cuda, "synchronize", synced.append)
+    times = metrics.LayerTimes()
+    entry, _ = _timed_step(times)
+    with metrics.layer_times():
+        entry(())                             # replay 1, outer's to read
+        with metrics.layer_times():
+            entry(())                         # reads 1, replays 2
+            assert times.timed == 1
+        assert times.timed == 2 and len(synced) == 1   # inner reads 2
+        assert not entry._unread
+    assert times.timed == 2 and times.untimed == 0     # not read twice
+    assert len(synced) == 1                   # nothing left to sync
+    assert times.ms == {metrics.VOIGT: 6.0, metrics.STEP: 11.0}
+    with metrics.layer_times():
+        with metrics.layer_times():
+            pass
+        entry(())                             # replay 3, the outer's
+    assert times.timed == 3 and len(synced) == 2
+
+
+def test_layer_times_leaves_steps_without_layers_alone(monkeypatch):
+    synced = []
+    monkeypatch.setattr(torch.cuda, "synchronize", synced.append)
+    times = metrics.LayerTimes()
+    entry, _ = _timed_step(times)
+    entry.layers = []                         # a step that captured none
+    with metrics.layer_times():
+        entry(())
+        entry(())
+    assert not synced and not entry._unread
+    assert (times.timed, times.untimed, times.ms) == (0, 0, {})
+
+
+def test_span_and_layer_names():
+    names = metrics.SPANS + metrics.LAYERS
+    assert len(set(names)) == len(names) == 19
+    assert all(n.startswith("grtcode::") for n in names)
+    # The three ranges profiles read by name keep their names.
+    assert (metrics.LINE_PREP, metrics.CLOUD_OPTICS, metrics.DISORT) == (
+        "grtcode::line_prep", "grtcode::cloud_optics", "grtcode::disort")
