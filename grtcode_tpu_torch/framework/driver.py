@@ -35,8 +35,8 @@ spans ``grtcode::run``, ``inputs``, ``surface_spectra``,
 ``check_limits``, ``gather``, ``scatter`` and the step cache's
 ``step_eager``, ``step_capture`` and ``step_replay``; the step's body
 under the device layers, ``grtcode::step`` around them all.
-:meth:`RadiationDriver.step_stats` reads the step cache's counts and the
-layers' device time in replays.
+:meth:`RadiationDriver.step_stats` reads the step cache's counts, the
+layers' device time in replays and the gas optics' line-prep counts.
 """
 from __future__ import annotations
 
@@ -189,9 +189,16 @@ class RadiationDriver:
         (graphs given back when a step ran out of memory); and the layers'
         device time in the replays made inside
         :func:`..utils.metrics.layer_times` blocks: ``layer_ms`` by layer
-        name summed over the ``timed`` replays, and the ``untimed`` ones.
-        A copy: two readings differ by what ran between them."""
-        return self._step_cache.stats()
+        name summed over the ``timed`` replays, and the ``untimed`` ones;
+        and ``line_prep``, the lines the bands' line prep prepped against
+        the catalog lines they stand for (each ``GasOptics.line_prep``,
+        which counts every caller of that gas optics).  A copy: two
+        readings differ by what ran between them."""
+        gases = {id(g): g for g in (self.lw_gas, self.sw_gas)
+                 if g is not None}.values()
+        return dict(self._step_cache.stats(), line_prep={
+            k: sum(getattr(g.line_prep, k) for g in gases)
+            for k in ("prepped", "catalog")})
 
     def _surface_spectra(self, atm: Atmosphere):
         """Emissivity / albedo on the solver grids (linear interpolation,

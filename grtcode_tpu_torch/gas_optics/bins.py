@@ -36,6 +36,12 @@ from .lines import GridLines, PreparedLines
 from .voigt import voigt_line_shape
 
 NIP = 3  # interpolation points per bin (spectral_bin-internal.h)
+# A block's line window starts and ends on multiples of this many lines
+# (or at the catalog's end), so each of its lines takes the same path
+# through lines.prepare's elementwise ops as in the whole catalog's prep:
+# PyTorch's CPU kernels run a row's last elements short of two vectors
+# through scalar code, whose pow can differ in the last bit.
+LINE_ALIGN = 64
 
 
 @dataclasses.dataclass
@@ -136,6 +142,34 @@ class BinRanges:
                         self.rem_cnt_r]).astype(np.int64)
         out[1::2] += out[0::2]
         return out.astype(np.int32)
+
+    def window(self, start_bin: int, nbins: int, num_lines: int):
+        """``(lo, hi, ranges)`` of the bin window ``[start_bin, start_bin
+        + nbins)``: the smallest line window ``[lo, hi)`` that holds every
+        line its bins read (each nonempty local and remote range), its
+        ends rounded out to multiples of ``LINE_ALIGN`` and clamped to the
+        ``num_lines`` lines of the (padded) catalog; and the ranges as
+        they index the window, the window's bins' nonempty ranges shifted
+        by ``-lo`` and every other range empty.  A window of the whole
+        catalog gives these ranges themselves."""
+        bnd = self.bounds().astype(np.int64)
+        begin, end = bnd[0::2], bnd[1::2]                   # (3, bins)
+        cols = slice(start_bin, start_bin + nbins)
+        used = np.zeros_like(begin, bool)
+        used[:, cols] = end[:, cols] > begin[:, cols]
+        if used.any():
+            a = LINE_ALIGN
+            lo = int(begin[used].min()) // a * a
+            hi = min(-(-int(end[used].max()) // a) * a, num_lines)
+        else:
+            lo, hi = 0, min(LINE_ALIGN, num_lines)
+        if lo == 0 and hi == num_lines:
+            return lo, hi, self
+        start = np.where(used, begin - lo, 0).astype(np.int32)
+        cnt = np.where(used, end - begin, 0).astype(np.int32)
+        shifted = BinRanges(start[0], cnt[0], start[1], cnt[1], start[2],
+                            cnt[2], self.lmax_local, self.lmax_remote)
+        return lo, hi, shifted
 
 
 def build_bin_ranges(lines: GridLines, bins: SpectralBins, *,
@@ -262,8 +296,9 @@ def accumulate_bins(prep: PreparedLines, ns, ranges: BinRanges,
     kernel (port of the JAX package's ``accumulate_bins``).
 
     Args:
-      prep: PreparedLines (rows, L) of the (padded) catalog the ranges
-        index.
+      prep: PreparedLines (rows, L) of the lines the ranges index: the
+        padded catalog, or a window of it with the ranges of
+        :meth:`BinRanges.window`.
       ns: (rows,) species column density [cm-2].
       ranges / bins: host tables of the band.
       tau0: (rows, nbins * ppb) fine tau of the window; the local lines'

@@ -7,7 +7,9 @@ is the device forward pass: Curtis-Godson prep -> per-molecule line prep
 and the line_sample or bin Voigt kernel (or the scatter sum) -> continua
 -> CFC -> CIA -> (bin methods) the wing interpolation.  The (batch, layer)
 plane flattens into one "rows" axis, so the whole batch is one kernel
-launch per molecule.
+launch per molecule.  In a spectral block the bin methods prep only the
+window of lines that the block's bins read; ``GasOptics.line_prep``
+counts the lines prepped against the catalog lines they stand for.
 """
 from __future__ import annotations
 
@@ -90,8 +92,10 @@ class GasOptics:
         self.bins = bins_mod.create_spectral_bins(
             self.grid.n, self.grid.w0, self.grid.dw, self.bin_width)
         self._bin_ranges = {}     # id -> BinRanges
+        self._windows = {}        # (id, start_bin, nbins) -> (lo, hi, ranges)
         self._raw_bounds = {}     # id -> unpadded GridLines
         self._wrel = {}           # (nbins, start_bin) -> device table
+        self.line_prep = metrics.LinePrepCounts()
 
     @property
     def block_quantum(self) -> int:
@@ -115,6 +119,18 @@ class GasOptics:
                 self._raw_bounds[mol_id], self.bins, mode=mode,
                 remote_cutoff=self.wcutoff)
         return self._bin_ranges[mol_id]
+
+    def _line_window(self, mol_id: int, start_bin: int, nbins: int):
+        """``(lo, hi, ranges)`` of a bin-method block (host, cached): the
+        lines ``[lo, hi)`` of the padded catalog that the block's bins
+        read, and the per-bin ranges shifted to index them
+        (:meth:`bins.BinRanges.window`).  A block that reaches the whole
+        catalog gets it, with the band's own ranges."""
+        key = (mol_id, start_bin, nbins)
+        if key not in self._windows:
+            self._windows[key] = self._get_bin_ranges(mol_id).window(
+                start_bin, nbins, self.molecules[mol_id].num_lines)
+        return self._windows[key]
 
     def _block_w_rel(self, start_bin: int, nbins: int):
         """(nbins, NIP) f32 interpolation positions of the bin window on
@@ -293,15 +309,19 @@ class GasOptics:
             x = lev(vmr[mol_id])
             psavg2, ns2 = cg.partial_pressures_and_densities(p2, x, n2d)
             psavg, ns = psavg2.reshape(rows), ns2.reshape(rows)
+            lo, hi, ranges = 0, bound.num_lines, None
+            if bin_method:        # only the lines the block's bins read
+                lo, hi, ranges = self._line_window(mol_id, start_bin, nbins)
+            self.line_prep.add(hi - lo, bound.num_lines)
             with metrics.layer(metrics.LINE_PREP):
-                prep = lines_mod.prepare(bound, self.grid, pavg, tavg, psavg,
-                                         tips=self.tips)
+                prep = lines_mod.prepare(
+                    bound, self.grid, pavg, tavg, psavg, tips=self.tips,
+                    window=(lo, hi) if bin_method else None)
             with metrics.layer(metrics.VOIGT):
                 if bin_method:
                     accumulate_bins_kernel(
-                        prep, ns, self._get_bin_ranges(mol_id), self.bins,
-                        start_bin=start_bin, nbins=nbins, tau0=tau_bins,
-                        bins_tau0=bins_tau)
+                        prep, ns, ranges, self.bins, start_bin=start_bin,
+                        nbins=nbins, tau0=tau_bins, bins_tau0=bins_tau)
                 elif self.method == "scatter":
                     optical_depth_line_sample(
                         prep, ns, self.grid, cutoff=self.wcutoff,

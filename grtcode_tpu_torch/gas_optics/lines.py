@@ -171,7 +171,8 @@ class PreparedLines:
 
 
 def prepare(lines: GridLines, grid: SpectralGrid, pavg, tavg, psavg,
-            tips=None) -> PreparedLines:
+            tips=None, window: tuple[int, int] | None = None
+            ) -> PreparedLines:
     """Line prep for one molecule over all rows (rows = columns x layers).
 
     Args:
@@ -179,12 +180,19 @@ def prepare(lines: GridLines, grid: SpectralGrid, pavg, tavg, psavg,
       pavg, tavg: (rows,) f32 layer pressure [atm] / temperature [K].
       psavg: (rows,) f32 layer partial pressure of this species [atm].
       tips: partition-function provider.
+      window: ``(lo, hi)``: prep only the lines ``[lo, hi)``, read as
+        views of the catalog's device tensors.  Prep is elementwise in
+        (row, line), so the result is columns ``[lo, hi)`` of the whole
+        catalog's prep.
     """
     if tips is None:
         tips = tips_mod.default_tips()
     c2 = constants.LINE_STRENGTH_C2
     tref = constants.TREF
     dev = lines.tensors(pavg.device)
+    if window is not None:
+        lo, hi = window
+        dev = {f: t[lo:hi] for f, t in dev.items()}
 
     pavg = pavg.to(torch.float32)[:, None]
     tavg = tavg.to(torch.float32)[:, None]

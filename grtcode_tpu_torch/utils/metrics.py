@@ -124,6 +124,26 @@ class LayerTimes:
         self.timed += 1
 
 
+class LinePrepCounts:
+    """Lines prepped (``prepped``) against the catalog lines they stand
+    for (``catalog``), added once per molecule and spectral block where a
+    step's Python runs: an eager call or a capture.  A replay repeats its
+    capture's prep and adds nothing.  ``share`` is 1.0 where every block
+    preps the whole catalog."""
+
+    def __init__(self):
+        self.prepped = 0
+        self.catalog = 0
+
+    def add(self, prepped: int, catalog: int) -> None:
+        self.prepped += prepped
+        self.catalog += catalog
+
+    @property
+    def share(self) -> float | None:
+        return self.prepped / self.catalog if self.catalog else None
+
+
 def unread_replays():
     """The innermost open :func:`layer_times` block's unread steps (a
     dict a step adds itself to after a replay), or None outside one."""

@@ -11,7 +11,13 @@
   tau;
 * both methods match the reference-C bins golden
   (tests/data/bins_golden.txt) at rtol 2e-3 / atol 1e-7
-  (tests/test_bins.py:53-60).
+  (tests/test_bins.py:53-60);
+* a spectral block preps only the window of lines that its bins read
+  (``BinRanges.window``): its optical depth, and the fluxes of
+  ``RadiationDriver.run(spectral_chunks=S)``, are bit for bit those of
+  the whole catalog's prep, on the first and the last block and on a
+  block with no line centres; ``GasOptics.line_prep`` counts the lines
+  prepped against the catalog lines once per step run.
 """
 import os
 
@@ -25,6 +31,9 @@ from grtcode_tpu.gas_optics.gas_optics import GasOptics as JGasOptics
 from grtcode_tpu.gas_optics.hitran import synthetic_catalog as jcatalog
 from grtcode_tpu.spectral import SpectralGrid as JGrid
 from grtcode_tpu_torch.convert import gas_optics_from_jax
+from grtcode_tpu_torch.framework.atmosphere import Atmosphere
+from grtcode_tpu_torch.framework.driver import RadiationDriver
+from grtcode_tpu_torch.gas_optics import bins
 from grtcode_tpu_torch.gas_optics.gas_optics import GasOptics
 from grtcode_tpu_torch.gas_optics.hitran import synthetic_catalog
 from grtcode_tpu_torch.spectral import SpectralGrid
@@ -176,3 +185,162 @@ def test_matches_reference_bins_golden(bins_golden, method):
     golden = bins_golden[method]
     np.testing.assert_allclose(tau, golden, rtol=2e-3, atol=1e-7)
     assert golden.max() > 100.0 and (golden > 0).sum() > 15000
+
+
+# ---------------------------------------------------------------------------
+# Line prep by spectral block
+# ---------------------------------------------------------------------------
+
+# 3,520 points in 320 bins of 11: S = 3 and S = 10 split the band into
+# blocks of 1,232 and 352 points (123.2 and 35.2 cm-1).
+WIDE = (100.0, 451.9, 0.1)
+# No line centres here: S = 10's block 5, [276.0, 311.2) cm-1, holds none.
+GAP = (262.0, 322.0)
+
+
+def _wide_gas(method, n=600, gap=True, grid=WIDE, mols=(1, 2)):
+    """A bin-method GasOptics on ``grid`` with ``n`` lines a molecule
+    drawn uniformly over the band and 10 cm-1 beyond it."""
+    gas = GasOptics(SpectralGrid(*grid), line_chunk=64, method=method,
+                    device="cpu")
+    for mol in mols:
+        rng = np.random.default_rng(30 + mol)
+        vnn = rng.uniform(grid[0] - 10.0, grid[1] + 10.0, n)
+        if gap:
+            vnn = vnn[(vnn < GAP[0]) | (vnn >= GAP[1])]
+        vnn, k = np.sort(vnn), vnn.size
+        gas.add_catalog(synthetic_catalog(
+            mol, vnn, 10.0 ** rng.uniform(-22.0, -19.0, k),
+            yair=rng.uniform(0.02, 0.1, k), yself=rng.uniform(0.05, 0.4, k),
+            en=rng.uniform(0.0, 2000.0, k), n=rng.uniform(0.4, 0.8, k),
+            d=rng.uniform(-0.02, 0.02, k)))
+    return gas
+
+
+def _whole_catalog(monkeypatch):
+    """Every block preps the whole catalog with the band's ranges: the
+    line prep as it was before blocks were windowed."""
+    monkeypatch.setattr(
+        GasOptics, "_line_window", lambda self, mol_id, start_bin, nbins: (
+            0, self.molecules[mol_id].num_lines,
+            self._get_bin_ranges(mol_id)))
+
+
+def test_window_holds_every_range_the_block_reads():
+    rng = np.random.default_rng(3)
+    nb, L = 40, 640
+    begin = np.sort(rng.integers(0, 500, (3, nb)), axis=1)
+    cnt = rng.integers(0, 60, (3, nb))
+    cnt[:, 10:20] = 0                      # bins 10-19 read no line
+    ranges = bins.BinRanges(begin[0], cnt[0], begin[1], cnt[1], begin[2],
+                            cnt[2], lmax_local=64, lmax_remote=64)
+    bnd = ranges.bounds().astype(np.int64)
+    for start_bin, nbins in ((0, nb), (4, 8), (12, 6), (30, 16)):
+        lo, hi, shifted = ranges.window(start_bin, nbins, L)
+        got = shifted.bounds().astype(np.int64)
+        assert lo % bins.LINE_ALIGN == 0 and lo < hi <= L
+        assert (hi % bins.LINE_ALIGN == 0) or hi == L
+        assert (shifted.lmax_local, shifted.lmax_remote) == (64, 64)
+        inside = np.zeros(nb, bool)
+        inside[start_bin:start_bin + nbins] = True
+        for r in range(3):
+            used = (bnd[2 * r + 1] > bnd[2 * r]) & inside
+            assert (bnd[2 * r][used] >= lo).all()
+            assert (bnd[2 * r + 1][used] <= hi).all()
+            assert np.array_equal(got[2 * r][used] + lo, bnd[2 * r][used])
+            assert np.array_equal(got[2 * r + 1][used] + lo,
+                                  bnd[2 * r + 1][used])
+            assert not got[2 * r:2 * r + 2, ~used].any()
+        if (start_bin, nbins) == (12, 6):      # no range at all
+            assert (lo, hi) == (0, bins.LINE_ALIGN)
+    whole = ranges.window(0, nb, int(bnd[1::2].max()))
+    assert whole[:2] == (0, int(bnd[1::2].max())) and whole[2] is ranges
+
+
+@pytest.mark.parametrize("S,block", [(1, 0), (3, 0), (3, 2), (10, 0),
+                                     (10, 9), (10, 5)],
+                         ids=["S1", "S3-first", "S3-last", "S10-first",
+                              "S10-last", "S10-no-centres"])
+@pytest.mark.parametrize("method", METHODS)
+def test_windowed_block_equals_whole_catalog_prep(method, S, block,
+                                                  monkeypatch):
+    gas = _wide_gas(method)
+    p, t, vmr = _state()
+    vmr = {1: vmr[1], 2: vmr[1] * 0.3}
+    kw = {}
+    if S > 1:
+        size, starts = RadiationDriver._blocks(gas, S)
+        kw = dict(block_start=starts[block], block_size=size)
+        assert starts[-1] < gas.grid.n
+    got = gas.optical_depth(p, t, vmr, **kw)
+    share = gas.line_prep.share
+    if S == 1:
+        assert share == 1.0
+    else:
+        assert share < 1.0                             # the window engaged
+    if (S, block) == (10, 5):
+        c = gas.molecules[1].c0
+        w = gas.grid.w0 + gas.grid.dw * c[(c >= starts[5])
+                                          & (c < starts[5] + size)]
+        assert w.size == 0
+    _whole_catalog(monkeypatch)
+    want = gas.optical_depth(p, t, vmr, **kw)
+    assert torch.equal(got, want)
+    assert got.max() > 0
+
+
+@pytest.mark.parametrize("S", [1, 3, 10])
+@pytest.mark.parametrize("method", METHODS)
+def test_streamed_fluxes_equal_whole_catalog_prep(method, S, monkeypatch):
+    gas = _wide_gas(method)
+    rng = np.random.default_rng(9)
+    B, nlev = 2, 9
+    p = np.linspace(0.05, 1013.0, nlev)[None, :] * np.ones((B, 1))
+    t = np.linspace(210.0, 290.0, nlev)[None, :] + rng.uniform(-4, 4,
+                                                               (B, nlev))
+    atm = Atmosphere(level_pressure=p, level_temperature=t,
+                     surface_temperature=t[:, -1] + 1.0,
+                     ppmv={1: rng.uniform(10.0, 2e4, (B, nlev)),
+                           2: np.full((B, nlev), 400.0)},
+                     emissivity_grid=np.array([50.0, 500.0]),
+                     emissivity=np.array([[0.95, 0.9], [1.0, 0.85]]))
+    got = RadiationDriver(gas).run(atm, spectral_chunks=S).tiers["csaf"]
+    assert (gas.line_prep.share == 1.0) == (S == 1)
+    _whole_catalog(monkeypatch)
+    want = RadiationDriver(gas).run(atm, spectral_chunks=S).tiers["csaf"]
+    for var in ("rlu", "rld"):
+        assert torch.equal(got[var], want[var]), var
+        assert got[var].abs().max() > 0
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_line_prep_counter_once_per_step(method):
+    """Unstreamed, the band preps every line its bins read: the whole
+    catalog in line_sweep (share 1.0), all but the lines off the grid in
+    wavenumber_sweep, whose bins read none.  At S = 10 on a uniform
+    catalog over 900 cm-1 the share is under 0.2.  Each eager step adds
+    its blocks' counts again."""
+    gas = _wide_gas(method, n=6000, gap=False, grid=(100.0, 999.9, 0.1),
+                    mols=(1,))
+    L = gas.molecules[1].num_lines
+    lo, hi, _ = gas._line_window(1, 0, gas.bins.n)
+    assert (hi - lo == L) == (method == "line_sweep")
+    assert hi - lo > 0.97 * L
+    p, t, vmr = _state()
+    atm = Atmosphere(level_pressure=p, level_temperature=t,
+                     surface_temperature=t[:, -1] + 1.0,
+                     ppmv={1: vmr[1] * 1e6})
+    driver = RadiationDriver(gas)
+    for calls in (1, 2):
+        driver.run(atm)
+        assert (gas.line_prep.prepped, gas.line_prep.catalog) == \
+            (calls * (hi - lo), calls * L)
+    assert driver.step_stats()["line_prep"] == dict(prepped=2 * (hi - lo),
+                                                    catalog=2 * L)
+    before = gas.line_prep.prepped
+    driver.run(atm, spectral_chunks=10)
+    once = gas.line_prep.prepped - before
+    assert gas.line_prep.catalog == 12 * L and once < 0.2 * 10 * L
+    driver.run(atm, spectral_chunks=10)
+    assert gas.line_prep.prepped - before == 2 * once
+    assert driver.step_stats()["eager"] == 4

@@ -16,7 +16,9 @@ scatter method: on the card against the CPU (also beyond the
 line_sample tables' limits and on a block past the grid end), and K1
 against it on the card, and the captured steps: each path's replayed
 graph bit-identical to its eager step (line_sample, streamed bins,
-all-sky, DISORT), an eager step with no host sync, a new lit count in the
+all-sky, DISORT), the bin kernel and the streamed step on each block's
+line window bit-identical to the whole catalog's prep, an eager step
+with no host sync, a new lit count in the
 same bucket replaying with no new capture, the launch counts advancing on
 replay, a failing capture raising, and the bench's step replayed; and the
 layers' device times read from a replay's timing events, against the
@@ -72,6 +74,14 @@ def cuda():
 def _molecule(device, w0=100.0, wn=180.0, n_lines=120, seed=5):
     """tests/test_pallas.py's setup (grid 100-180 cm-1 at 0.1, 120 lines,
     3 x 6 rows), prepared on ``device`` by the port."""
+    grid, bound, layers, ns = _molecule_rows(device, w0, wn, n_lines, seed)
+    prep = lines.prepare(bound, grid, *layers)
+    return grid, bound, prep, ns
+
+
+def _molecule_rows(device, w0, wn, n_lines, seed):
+    """:func:`_molecule`'s grid, bound catalog, (pavg, tavg, psavg) of
+    its rows and column densities, before line prep."""
     grid = SpectralGrid(w0, wn, 0.1)
     rng = np.random.default_rng(seed)
     vnn = np.sort(rng.uniform(w0 - 10.0, wn + 10.0, n_lines))
@@ -97,9 +107,8 @@ def _molecule(device, w0=100.0, wn=180.0, n_lines=120, seed=5):
     pavg, tavg = cg.layer_pressures_temperatures(p_atm, f32(t))
     psavg, ns = cg.partial_pressures_and_densities(p_atm, f32(x), n_air)
     rows = B * (nlev - 1)
-    prep = lines.prepare(bound, grid, pavg.reshape(rows),
-                         tavg.reshape(rows), psavg.reshape(rows))
-    return grid, bound, prep, ns.reshape(rows).contiguous()
+    layers = (pavg.reshape(rows), tavg.reshape(rows), psavg.reshape(rows))
+    return grid, bound, layers, ns.reshape(rows).contiguous()
 
 
 @pytest.fixture(scope="module")
@@ -223,6 +232,34 @@ def test_bin_kernel_wrapper_raises_instead_of_falling_back(cuda):
             prep, ns, ranges, bins, nbins=4,
             tau0=torch.zeros((ns.shape[0], 3), device=cuda))
     assert bm.accumulate_bins.launches == plain
+
+
+@pytest.mark.parametrize("mode", ["bin_sweep", "line_sweep"])
+def test_bin_kernel_on_a_block_line_window_is_bit_identical(cuda, mode):
+    """K2 on the lines a block reads (the window's prep and the shifted
+    ranges) equals K2 on the whole catalog's prep, bit for bit, on each
+    of 10 blocks of a band of 3,000 uniform lines over 900 cm-1."""
+    grid, bound, layers, ns = _molecule_rows(cuda, 100.0, 999.9, 3000, 7)
+    padded = bound.pad_to(3072)
+    whole = lines.prepare(padded, grid, *layers)
+    bins, ranges = _bin_tables(grid, bound, mode)
+    nbins = 88                                       # 10 blocks of 968
+    prepped = 0
+    for start_bin in range(0, bins.n, nbins):
+        lo, hi, shifted = ranges.window(start_bin, nbins, 3072)
+        prepped += hi - lo
+        prep = lines.prepare(padded, grid, *layers, window=(lo, hi))
+        for f in ("center_idx", "center_frac", "strength", "lorentz",
+                  "doppler"):
+            assert torch.equal(getattr(prep, f),
+                               getattr(whole, f)[:, lo:hi]), f
+        kw = dict(start_bin=start_bin, nbins=nbins)
+        got = bk.accumulate_bins_kernel(prep, ns, shifted, bins, **kw)
+        want = bk.accumulate_bins_kernel(whole, ns, ranges, bins, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert want[1].max() > 0
+    assert prepped < 0.2 * 10 * 3072
 
 
 def _fluxes(device, spectral_chunks=None, **model):
@@ -851,6 +888,39 @@ def test_replay_equals_the_eager_step_bit_for_bit(cuda, path):
             assert len(driver._step_cache.entries) == 0
     assert len(driver._step_cache.entries) == (1 if path in (
         "line_sample", "streamed") else 2)     # smoke all-sky: 2 at night
+
+
+def test_streamed_step_on_line_windows_is_bit_identical(cuda, monkeypatch):
+    """The streamed bin-method step at S = 10: its replays equal its
+    eager call and the eager call of the whole catalog's prep, bit for
+    bit; the line-prep counter adds at the eager call and the capture,
+    not at a replay."""
+    from grtcode_tpu_torch.gas_optics.gas_optics import GasOptics
+    from grtcode_tpu_torch.utils import debug
+
+    lw, _, _, batch, _, _ = examples.rfmip_like(
+        smoke=True, device=cuda, lw_method="wavenumber_sweep", lw_res=0.01)
+    driver, atm = RadiationDriver(lw), examples.atmosphere(batch)
+    with debug.disable_jit():
+        eager = _tiers(driver.run(atm, spectral_chunks=10))
+    once = dict(driver.step_stats()["line_prep"])
+    assert once["prepped"] < 0.25 * once["catalog"]
+    for i in range(4):            # warm-up, capture and replay, replays
+        got = _tiers(driver.run(atm, spectral_chunks=10))
+        for k in eager["csaf"]:
+            assert torch.equal(got["csaf"][k], eager["csaf"][k]), (i, k)
+        calls = 1 + min(i + 1, 2)              # eager calls and captures
+        assert driver.step_stats()["line_prep"] == {
+            k: calls * v for k, v in once.items()}
+    assert driver.step_stats()["replays"] == 3
+    monkeypatch.setattr(
+        GasOptics, "_line_window", lambda self, mol_id, start_bin, nbins: (
+            0, self.molecules[mol_id].num_lines,
+            self._get_bin_ranges(mol_id)))
+    with debug.disable_jit():
+        whole = _tiers(driver.run(atm, spectral_chunks=10))
+    for k in eager["csaf"]:
+        assert torch.equal(whole["csaf"][k], eager["csaf"][k]), k
 
 
 @pytest.mark.parametrize("path", ["line_sample", "streamed", "allsky",
