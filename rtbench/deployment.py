@@ -4,10 +4,15 @@ and the run's seed.
 Everything here is raw input in float64 numpy, handed alike to the
 program under test (``rtbench.program``) and to the plain reference
 (``rtbench.reference``): the line catalogs, the continua, cross sections
-and solar spectrum on each band's grid, and the (experiment, site, level)
-profiles of the RFMIP-IRF layout.  What either side derives from them
-(grid-bound catalogs, line prep, bin tables, folded CIA factors) it
-works out itself.
+and solar spectrum on each band's grid, and the columns' profiles and
+surface spectra.  What either side derives from them (grid-bound
+catalogs, line prep, bin tables, folded CIA factors, spectra on the band
+grids) it works out itself.
+
+The columns come from the configuration's layout,
+``rtbench/layouts/<layout>.py`` (``layout`` in the configuration,
+``rfmip_irf`` where it names none): a later configuration brings its own
+profiles, surface spectra, incident spectrum and sun as a new file.
 
 The line parameters the program keeps in float32 (half-widths, lower
 state energy, temperature exponent, shift) are drawn as float32 values,
@@ -16,6 +21,7 @@ so both sides start from the same numbers.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import math
 
@@ -66,19 +72,42 @@ class Band:
 
 
 @dataclasses.dataclass
+class Layout:
+    """The columns a layout module makes: ``sites`` x ``experiments``
+    columns, their ``profiles``, and where the layout has one the
+    shortwave band's incident spectrum ``solar`` as (wavenumbers [cm-1],
+    values) samples (else the configuration's analytic ``solar``).
+
+    ``profiles`` holds, by site: ``p_lev`` (nsite, nlevels) [mb],
+    ``mu_site`` (nsite,) cosines of zenith, ``tsi`` (nsite,) [W m-2], and
+    the surface spectra ``emissivity_grid`` / ``emissivity`` (nsite, ne)
+    and ``albedo_grid`` / ``albedo`` (nsite, na), grids [cm-1] ascending;
+    by experiment and site: ``t_lev`` (nexpt, nsite, nlevels) [K],
+    ``t_surf`` (nexpt, nsite), and ``ppmv`` (HITRAN id), ``cfc_ppmv`` and
+    ``cia_ppmv`` (species id), each a dict of (nexpt, nsite, nlevels)
+    abundances [ppmv] at levels."""
+
+    sites: int
+    experiments: int
+    profiles: dict
+    solar: tuple | None = None
+
+
+@dataclasses.dataclass
 class Deployment:
     config: dict
     bands: dict         # "lw" [/ "sw"] -> Band
     solar: np.ndarray | None    # (n_sw,) incident spectrum, integral 1
-    profiles: dict      # see _profiles
+    profiles: dict      # see Layout
     sites: int
     experiments: int
 
     def columns(self, expts, sites, mu) -> dict:
         """The (B, ...) arrays of the columns (experiment, site) with
         cosines of zenith ``mu``: level pressure [mb] and temperature [K],
-        surface temperature, abundances [ppmv] at levels, TSI, grey
-        albedo and emissivity."""
+        surface temperature, abundances [ppmv] at levels, TSI, and the
+        surface albedo and emissivity spectra (each column's grid and
+        values)."""
         pr = self.profiles
         e, s = np.asarray(expts), np.asarray(sites)
         return {
@@ -88,7 +117,8 @@ class Deployment:
             "cfc_ppmv": {k: v[e, s] for k, v in pr["cfc_ppmv"].items()},
             "cia_ppmv": {k: v[e, s] for k, v in pr["cia_ppmv"].items()},
             "mu": np.asarray(mu, np.float64), "tsi": pr["tsi"][s],
-            "albedo": pr["albedo"][s], "emissivity": pr["emissivity"][s],
+            **{k: pr[k][s] for k in ("albedo_grid", "albedo",
+                                     "emissivity_grid", "emissivity")},
         }
 
     def column(self, expt: int, site: int, mu: float) -> dict:
@@ -97,6 +127,18 @@ class Deployment:
         cols = self.columns([expt], [site], [mu])
         return {k: ({m: a[0] for m, a in v.items()} if isinstance(v, dict)
                     else v[0]) for k, v in cols.items()}
+
+
+def layout(cfg: dict):
+    """The configuration's layout module, ``rtbench/layouts/<layout>.py``."""
+    module = f"{__package__}.layouts.{cfg.get('layout', 'rfmip_irf')}"
+    try:
+        return importlib.import_module(module)
+    except ModuleNotFoundError as err:
+        if err.name != module:
+            raise
+        raise ValueError(f"{cfg['name']}: no layout "
+                         f"{module.replace('.', '/')}.py") from err
 
 
 def _gauss(w, spec):
@@ -142,92 +184,25 @@ def _band(cfg: dict, name: str, seed: int, smoke: dict | None) -> Band:
         remote_bins=b.get("remote_bins", 25))
 
 
-def _layers_to_levels(lay, p_lay, p_lev):
-    """Layer values to levels, linear in pressure, the end levels taking
-    the nearest layer's value (the RFMIP-IRF app's rule)."""
-    out = np.empty(lay.shape[:-1] + (p_lev.shape[-1],))
-    out[..., 0], out[..., -1] = lay[..., 0], lay[..., -1]
-    out[..., 1:-1] = lay[..., :-1] + (lay[..., 1:] - lay[..., :-1]) * (
-        (p_lev[..., 1:-1] - p_lay[..., :-1])
-        / (p_lay[..., 1:] - p_lay[..., :-1]))
-    return out
-
-
-def _profiles(cfg: dict, seed: int, nsite: int, nexpt: int) -> dict:
-    pc = cfg["profiles"]
-    L = cfg["levels"]
-    g = rng(seed, 3)
-    p_lev = (np.linspace(*pc["pressure_pa"], L)[None, :] * 0.01
-             * g.uniform(*pc["site_pressure_factor"], (nsite, 1)))   # mb
-    p_lay = 0.5 * (p_lev[:, :-1] + p_lev[:, 1:])
-    expts = cfg["experiments_by_index"][:nexpt]
-    warm = np.array([e.get("warming_k", 0.0) for e in expts])
-    t_lev = (np.linspace(*pc["temperature_k"], L)[None, None, :]
-             + g.uniform(-pc["temperature_jitter_k"],
-                         pc["temperature_jitter_k"], (nexpt, nsite, L))
-             + warm[:, None, None])
-    base = {k: float(v) for k, v in cfg["present_day_ppmv"].items()}
-    per_expt = []
-    for e in expts:
-        v = dict(base, **{k: float(x) for k, x in e.get("ppmv", {}).items()})
-        for k, f in e.get("scale", {}).items():
-            v[k] = v.get(k, 1.0) * f
-        per_expt.append(v)
-
-    def scale(key):
-        return np.array([v.get(key, 1.0) if key in ("1", "3") else 1.0
-                         for v in per_expt])[:, None, None]
-
-    h2o = np.maximum(pc["h2o_floor"], pc["h2o_surface"]
-                     * (p_lay[None] / 1000.0) ** pc["h2o_exponent"]
-                     * g.uniform(*pc["h2o_jitter"], (nexpt, nsite, L - 1)))
-    o3 = g.uniform(*pc["o3"], (nexpt, nsite, L - 1))
-    ppmv = {1: _layers_to_levels(h2o * scale("1") * 1e6, p_lay[None],
-                                 p_lev[None]),
-            3: _layers_to_levels(o3 * scale("3") * 1e6, p_lay[None],
-                                 p_lev[None])}
-    molecules = sorted({int(m) for band in cfg["bands"].values()
-                        for m in band["lines"]})
-    full = (nexpt, nsite, L)
-    for m in molecules:
-        if m not in ppmv:
-            ppmv[m] = np.broadcast_to(
-                np.array([v[str(m)] for v in per_expt])[:, None, None], full)
-    table = {}
-    for prefix in ("cfc", "cia"):
-        table[prefix] = {
-            int(k.split("_")[1]): np.broadcast_to(
-                np.array([v[k] for v in per_expt])[:, None, None], full)
-            for k in base if k.startswith(prefix + "_")}
-    zen = np.resize(np.asarray(pc["zenith_deg_by_site"], np.float64), nsite)
-    return {
-        "p_lev": p_lev, "t_lev": t_lev,
-        "t_surf": t_lev[..., -1] + pc["surface_dt_k"],
-        "ppmv": ppmv, "cfc_ppmv": table["cfc"], "cia_ppmv": table["cia"],
-        "mu_site": np.cos(np.deg2rad(zen)),
-        "tsi": np.full(nsite, float(pc["tsi"])),
-        "albedo": g.uniform(*pc["albedo"], nsite),
-        "emissivity": g.uniform(*pc["emissivity"], nsite),
-    }
-
-
 def build(cfg: dict, seed: int, smoke: bool = False) -> Deployment:
     """The deployment of configuration ``cfg`` drawn from ``seed``;
     ``smoke`` takes the configuration's ``smoke`` cuts (fewer lines,
-    coarser grids, fewer sites and experiments) for a run on the CPU."""
+    coarser grids, and whatever the layout cuts) for a run on the CPU."""
     cut = cfg["smoke"] if smoke else None
-    nsite = cut["sites"] if cut else cfg["sites"]
-    nexpt = cut["experiments"] if cut else cfg["experiments"]
     bands = {name: _band(cfg, name, seed, cut) for name in cfg["bands"]}
+    lay = layout(cfg).build(cfg, seed, cut)
     solar = None
     if "sw" in bands:
-        sol = cfg["solar"]
-        x = np.linspace(sol["w0"], sol["wn"], sol["samples"])
-        y = np.exp(-0.5 * ((x - sol["center"]) / sol["width"]) ** 2) \
-            + sol["floor"]
+        if lay.solar is None:
+            sol = cfg["solar"]
+            x = np.linspace(sol["w0"], sol["wn"], sol["samples"])
+            y = np.exp(-0.5 * ((x - sol["center"]) / sol["width"]) ** 2) \
+                + sol["floor"]
+        else:
+            x, y = lay.solar
         w = bands["sw"].wavenumbers
         c = np.interp(w, x, y)
         solar = c / np.sum(0.5 * (c[:-1] + c[1:]) * np.diff(w))
     return Deployment(config=cfg, bands=bands, solar=solar,
-                      profiles=_profiles(cfg, seed, nsite, nexpt),
-                      sites=nsite, experiments=nexpt)
+                      profiles=lay.profiles, sites=lay.sites,
+                      experiments=lay.experiments)

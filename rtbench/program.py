@@ -19,6 +19,7 @@ from grtcode_tpu_torch.gas_optics.hitran import synthetic_catalog
 from grtcode_tpu_torch.gas_optics.xsec import CrossSectionTable
 from grtcode_tpu_torch.solvers.solar_flux import SolarFlux
 from grtcode_tpu_torch.spectral import SpectralGrid
+from grtcode_tpu_torch.utils import metrics
 
 from .deployment import Band, Deployment
 
@@ -61,34 +62,48 @@ def _gas(band: Band, device) -> GasOptics:
 
 def build_driver(dep: Deployment, device) -> RadiationDriver:
     """The clear-sky driver of the deployment on ``device`` (longwave
-    only where the deployment has no shortwave band)."""
+    only where the deployment has no shortwave band), with the
+    configuration's ``sw_solver`` and ``disort_streams``, which the
+    driver checks."""
     device = torch.device(device)
+    cfg = dep.config
+    if cfg["sky"] != "csaf":
+        raise ValueError(f"{cfg['name']}: sky {cfg['sky']!r} is not built: "
+                         "the benchmark makes no cloud state (fractions, "
+                         "water contents, layer thickness, cloud optics) "
+                         "and reads no 'af' tier; only 'csaf'")
     lw = _gas(dep.bands["lw"], device)
-    if dep.config["sky"] != "csaf":
-        raise ValueError("only the clear-sky deployment is built")
+    options = dict(sw_solver=cfg.get("sw_solver", "two_stream"),
+                   disort_streams=cfg.get("disort_streams", 16))
     if "sw" not in dep.bands:
-        return RadiationDriver(lw)
+        return RadiationDriver(lw, **options)
     sw = _gas(dep.bands["sw"], device)
     solar = SolarFlux(grid=sw.grid, incident_flux=torch.as_tensor(
         dep.solar, dtype=torch.float32, device=device))
-    if dep.config["sw_solver"] != "two_stream":
-        raise ValueError("only the two-stream shortwave is built")
-    return RadiationDriver(lw, sw, solar)
+    return RadiationDriver(lw, sw, solar, **options)
+
+
+def _one_grid(grids) -> np.ndarray:
+    """The surface grid of a call's columns: the program takes one for
+    all of them."""
+    grids = np.asarray(grids, np.float64)
+    if not np.all(grids == grids[:1]):
+        raise ValueError("the columns of one call have different surface "
+                         "grids; the program takes one a call")
+    return grids[0]
 
 
 def atmosphere(cols: dict) -> Atmosphere:
-    """The clean, clear ``Atmosphere`` of a call's columns, its surface
-    spectra flat (the RFMIP-IRF app's two-point grids)."""
-    flat = np.array([1.0, 2.0])
+    """The clean, clear ``Atmosphere`` of a call's columns, with their
+    surface spectra as the layout gives them."""
     return Atmosphere(
         level_pressure=cols["p_lev"], level_temperature=cols["t_lev"],
         surface_temperature=cols["t_surf"], ppmv=cols["ppmv"],
         cfc_ppmv=cols["cfc_ppmv"], cia_ppmv=cols["cia_ppmv"],
-        emissivity_grid=flat,
-        emissivity=np.repeat(cols["emissivity"][:, None], 2, axis=1),
+        emissivity_grid=_one_grid(cols["emissivity_grid"]),
+        emissivity=cols["emissivity"],
         cos_zenith=cols["mu"], total_solar_irradiance=cols["tsi"],
-        albedo_grid=flat,
-        albedo=np.repeat(cols["albedo"][:, None], 2, axis=1),
+        albedo_grid=_one_grid(cols["albedo_grid"]), albedo=cols["albedo"],
         clean=True, clear=True)
 
 
@@ -106,3 +121,15 @@ def host(results) -> dict:
 def call(driver: RadiationDriver, atm: Atmosphere, spectral_chunks: int):
     """One timed call: the run and its fluxes on the host."""
     return host(run(driver, atm, spectral_chunks))
+
+
+def layer_times():
+    """The program's block that times each ``grtcode::`` device layer in
+    the replays of captured steps inside it (``metrics.layer_times``)."""
+    return metrics.layer_times()
+
+
+def step_stats(driver: RadiationDriver) -> dict:
+    """The driver's step-cache counts, layer times and line-prep counts
+    (``RadiationDriver.step_stats``)."""
+    return driver.step_stats()

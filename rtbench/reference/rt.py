@@ -11,10 +11,11 @@ call, written out one after another for one column at a time.
    interpolated after every absorber), with the five-region Humlicek
    profile.
 4. H2O and O3 continua, CFC and CIA cross sections.
-5. Rayleigh optics and the delta-Eddington / Meador-Weaver two-stream
-   solver with the adding method (shortwave, lit columns only: a night
-   column's shortwave fluxes are zero), the four-stream absorption solver
-   with Clough's effective Planck source (longwave).
+5. The surface spectra on each band's grid, Rayleigh optics and the
+   configuration's shortwave solver, ``sw_<sw_solver>.py`` beside this
+   file (lit columns only: a night column's shortwave fluxes are zero),
+   the four-stream absorption solver with Clough's effective Planck
+   source (longwave).
 6. Trapezoid integrals over each band.
 
 Everything is computed in ``dtype`` (float64 by default; the control
@@ -26,6 +27,7 @@ are frozen copies of ``grtcode_tpu_torch/constants.py`` at commit 64ee402
 """
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import os
@@ -53,7 +55,6 @@ LW_WEIGHTS = (0.07587638482015649, 0.676114979733751, 1.3726594476601073,
 PLANCK_A, PLANCK_B = 0.193, 0.013     # Clough et al. 1992 eq. 16
 CIA_FACTOR = (1.013e6 * 1.013e6) / (1.38064852e-16 * (28.97 / 6.02214076e23)
                                     * 980.0 * 2.0)
-DIFFUSE_MU = 0.5
 MU_FLOOR = 1e-6
 # Principal-isotopologue molar masses [g mol-1] (molecules.c).
 MOLAR_MASS = {1: 18.010565, 2: 43.98983, 3: 47.984745, 4: 44.001062,
@@ -477,78 +478,36 @@ def longwave(tau, t_lay, t_lev, t_surf, emis, w):
     return torch.stack(up[::-1]), torch.stack(down)
 
 
-def _two_stream(tau, omega, g, mu):
-    """Delta-Eddington scaling and the Meador-Weaver Eddington layer
-    reflectance and transmittances (direct total, diffuse, direct
-    unscattered) for the beam of cosine ``mu``."""
-    f = g * g
-    omega_s = (1.0 - f) * omega / (1.0 - omega * f)
-    g_s = g / (g + 1.0)
-    t = tau * (1.0 - omega * f)
-    g1 = 0.25 * (7.0 - omega_s * (4.0 + 3.0 * g_s))
-    g2 = -0.25 * (1.0 - omega_s * (4.0 - 3.0 * g_s))
-    g3 = 0.25 * (2.0 - 3.0 * g_s * mu)
-    g4 = 1.0 - g3
-    a1, a2 = g1 * g4 + g2 * g3, g1 * g3 + g2 * g4
-    k = torch.sqrt(torch.clamp(g1 * g1 - g2 * g2, min=1e-12))
-    e1, ek = torch.exp(-t / mu), torch.exp(-t * k)
-    e2 = ek * ek
-    den = (1.0 - k * k * mu * mu) * ((k + g1) + (k - g1) * e2)
-    den = torch.where(den.abs() < 1e-12, torch.where(
-        den < 0, -1e-12, 1e-12) * torch.ones_like(den), den)
-    r = (omega_s / den) * ((1.0 - k * mu) * (a2 + k * g3)
-                           - (1.0 + k * mu) * (a2 - k * g3) * e2
-                           - 2.0 * k * (g3 - a2 * mu) * e1 * ek)
-    tr = e1 - (omega_s / den) * ((1.0 + k * mu) * (a1 + k * g4) * e1
-                                 - (1.0 - k * mu) * (a1 - k * g4) * e1 * e2
-                                 - 2.0 * k * (g4 + a1 * mu) * ek)
-    r_c = (g1 * t + (g3 - g1 * mu) * (1.0 - e1)) / (1.0 + g1 * t)
-    zero, one = torch.zeros_like(r), torch.ones_like(r)
-    none, clear, cons = omega_s <= 0.0, t <= 0.0, omega_s >= 1.0
-    r = torch.where(none | clear, zero, torch.where(cons, r_c, r))
-    tr = torch.where(none, e1, torch.where(clear, one,
-                                           torch.where(cons, 1.0 - r_c, tr)))
-    pure = torch.where(clear & ~none, one, e1)
-    return r, tr, pure
-
-
-def shortwave(tau, omega, g, mu, albedo, tsi, solar):
-    """Two-stream fluxes (nlevels, n), up and down, by the adding method
-    (Briegleb 1992)."""
-    r_dir, t_dir, t_pure = _two_stream(tau, omega, g, mu)
-    t_dir = torch.maximum(t_dir, t_pure)
-    r_dif, t_dif, _ = _two_stream(tau, omega, g, DIFFUSE_MU)
-    nlay = tau.shape[0]
-    alb = albedo * torch.ones_like(tau[0])
-    below_dir, below_dif = [alb], [alb]
-    for k in reversed(range(nlay)):
-        b = 1.0 / (1.0 - r_dif[k] * below_dif[-1])
-        below_dir.append(r_dir[k] + (t_pure[k] * below_dir[-1] + (
-            t_dir[k] - t_pure[k]) * below_dif[-1]) * t_dif[k] * b)
-        below_dif.append(r_dif[k] + t_dif[k] ** 2 * below_dif[-1] * b)
-    below_dir, below_dif = below_dir[::-1], below_dif[::-1]
-    above = [r_dif[0]]
-    for k in range(1, nlay):
-        above.append(r_dif[k] + t_dif[k] ** 2 * above[-1]
-                     / (1.0 - r_dif[k] * above[-1]))
-    direct, diffuse = torch.ones_like(alb), torch.zeros_like(alb)
-    up, down = [below_dir[0]], [torch.ones_like(alb)]
-    for k in range(nlay):
-        prev = above[k - 1] if k > 0 else torch.zeros_like(alb)
-        diffuse = (direct * r_dir[k] * prev + diffuse) * t_dif[k] / (
-            1.0 - r_dif[k] * prev) + direct * (t_dir[k] - t_pure[k])
-        direct = direct * t_pure[k]
-        b = 1.0 / (1.0 - below_dif[k + 1] * above[k])
-        up.append((direct * below_dir[k + 1] + diffuse * below_dif[k + 1])
-                  * b)
-        down.append(direct * (1.0 + below_dir[k + 1] * above[k] * b)
-                    + diffuse * b)
-    scale = tsi * mu * solar
-    return torch.stack(up) * scale, torch.stack(down) * scale
-
-
 def trapezoid(y, dw):
     return (0.5 * (y[..., :-1] + y[..., 1:])).sum(-1) * dw
+
+
+def surface(grid, values, w: np.ndarray) -> np.ndarray:
+    """A surface spectrum (``values`` on the ascending ``grid`` [cm-1]) on
+    the wavenumbers ``w``, in float64: linear inside the grid, its first
+    value below it and its second-to-last value past its last point (the
+    reference C's interpolate2, utilities.c:216-219)."""
+    x = np.asarray(grid, np.float64)
+    y = np.asarray(values, np.float64)
+    out = np.interp(w, x, y)
+    out[w > x[-1]] = y[-2]
+    return out
+
+
+def sw_solver(cfg: dict):
+    """The ``fluxes`` of the configuration's shortwave solver
+    (``sw_solver``, "two_stream" where it names none): the module
+    ``sw_<sw_solver>.py`` beside this file."""
+    name = cfg.get("sw_solver", "two_stream")
+    module = f"{__package__}.sw_{name}"
+    try:
+        return importlib.import_module(module).fluxes
+    except ModuleNotFoundError as err:
+        if err.name != module:
+            raise
+        raise ValueError(f"{cfg['name']}: the reference has no shortwave "
+                         f"solver {name!r}: no file rtbench/reference/"
+                         f"sw_{name}.py") from err
 
 
 def column_fluxes(dep, col: dict, *, dtype=torch.float64, device="cpu",
@@ -562,9 +521,10 @@ def column_fluxes(dep, col: dict, *, dtype=torch.float64, device="cpu",
     lw, sw = dep.bands["lw"], dep.bands.get("sw")
     w = c.tensor(lw.wavenumbers)
     tau = band_tau(c, lw, tips)
+    emis = surface(col["emissivity_grid"], col["emissivity"],
+                   lw.wavenumbers)
     up, down = longwave(tau, c.tensor(c.tavg), c.tensor(c.t_lev),
-                        c.tensor(col["t_surf"]), c.tensor(col["emissivity"]),
-                        w)
+                        c.tensor(col["t_surf"]), c.tensor(emis), w)
     del tau
     out = {"rlu": trapezoid(up, lw.dw), "rld": trapezoid(down, lw.dw)}
     del up, down
@@ -576,9 +536,11 @@ def column_fluxes(dep, col: dict, *, dtype=torch.float64, device="cpu",
         ray = c.tensor(c.n)[:, None] * (1e-20 * ww ** 4) / (
             0.268675e5 * (9.38076e2 - 10.8426 * ww * ww))
         tau = gas + ray
-        up, down = shortwave(tau, ray / tau, torch.zeros_like(tau),
-                             max(mu, MU_FLOOR), c.tensor(col["albedo"]),
-                             c.tensor(col["tsi"]), c.tensor(dep.solar))
+        albedo = surface(col["albedo_grid"], col["albedo"], sw.wavenumbers)
+        up, down = sw_solver(dep.config)(
+            tau, ray / tau, torch.zeros_like(tau), max(mu, MU_FLOOR),
+            c.tensor(albedo), c.tensor(col["tsi"]), c.tensor(dep.solar),
+            config=dep.config)
         out["rsu"], out["rsd"] = trapezoid(up, sw.dw), trapezoid(down, sw.dw)
     elif sw is not None:
         out["rsu"] = out["rsd"] = torch.zeros_like(out["rlu"])

@@ -3,17 +3,21 @@
     python3 -m rtbench.run --workload <cell> --seed <n> --seconds <s> \\
         --trace <0|1> [--smoke]
 
-1. Build the cell's deployment from the seed (line catalogs, tables and
-   profiles) and the program's ``RadiationDriver`` on ``cuda:0``; make
-   the ``Atmosphere`` of every call the traffic mix draws.
+1. Find the configuration's shortwave reference (a missing one stops the
+   run here).  Build the cell's deployment from the seed (line catalogs,
+   tables, and the layout's profiles and surface spectra) and the
+   program's ``RadiationDriver`` on ``cuda:0``; make the ``Atmosphere``
+   of every call the traffic mix draws.
 2. Warm up the cell's own keys: two calls for each number of lit
    columns the traffic holds (each key runs eagerly once, then is
    captured).  Everything up to the first timed call is ``setup_s``.
 3. Time whole calls, ``RadiationDriver.run(atm, spectral_chunks=S)``
    and ``FluxResults.host()``, one after another for ``--seconds``
    (closed loop; the last call started in the window runs to its end).
-   With ``--trace 1`` the window runs under ``torch.profiler`` and the
-   host-sync counter, and the per-layer metrics are read from them.
+   With ``--trace 1`` the window runs under ``torch.profiler``, the
+   host-sync counter and the program's layer timing, and the per-layer
+   metrics are read from them, from the program's spans and from its
+   step-cache counts before and after the window.
 4. Free the program, then check a sample of the computed columns drawn
    from the seed against the plain reference (``rtbench.check``).
 5. Print one JSON line: ``correct``, ``attempted``, ``failed``,
@@ -55,6 +59,7 @@ from .spec import Spec  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "grtcode_tpu")
 CENSUS_COLUMNS = 8      # columns counted at once (~0.5 GB a temporary)
+PROGRAM_SPANS = "grtcode::"     # the prefix of the program's spans
 NOT_MEASURED = "not measured"
 
 
@@ -148,6 +153,10 @@ def main(argv=None) -> dict:
     cfg = spec.config(cell["config"])
     mix = spec.traffic(cell["traffic"])
     limits = spec.limits(args.workload)
+    try:
+        rt.sw_solver(cfg)
+    except ValueError as err:
+        fail(2, str(err))
     if args.smoke:
         device = torch.device("cpu")
     else:
@@ -186,12 +195,14 @@ def main(argv=None) -> dict:
         syncs = SyncCounter() if device.type == "cuda" else None
         activities = [ProfilerActivity.CPU] + (
             [ProfilerActivity.CUDA] if device.type == "cuda" else [])
-        with profile(activities=activities) as prof:
+        stats = program.step_stats(driver)
+        with profile(activities=activities) as prof, program.layer_times():
             with torch.profiler.record_function(WINDOW_RANGE):
                 w = run_window(program, driver, atms, call_list, S,
                                args.seconds, syncs)
         launches = {k: f.launches - before[k]
                     for k, f in program.LAUNCH_COUNTERS.items()}
+        stats = difference(program.step_stats(driver), stats)
     else:
         w = run_window(program, driver, atms, call_list, S, args.seconds)
     peak = torch.cuda.max_memory_allocated(0) if device.type == "cuda" \
@@ -224,8 +235,15 @@ def main(argv=None) -> dict:
             "census": counted.kernels(), "launches": launches,
             "launches_agree": launches_agree(launches, dep, S, w.calls,
                                              device),
-            "peak_f32_ops": census_mod.PEAK_F32_OPS}
+            "peak_f32_ops": census_mod.PEAK_F32_OPS,
+            "layer_ms": {k: v / max(1, len(w.calls))
+                         for k, v in stats.pop("layer_ms").items()},
+            "layer_untimed": stats["untimed"],
+            "host_spans": trace.host_spans(PROGRAM_SPANS),
+            "step_stats": stats}
         note("census done")
+        for k in ("layer_ms", "layer_untimed", "host_spans", "step_stats"):
+            print(f"rtbench: {k} {json.dumps(record[k])}", file=sys.stderr)
         if syncs:
             print(f"rtbench: host syncs by line: {syncs.where.most_common(6)}",
                   file=sys.stderr)
@@ -268,6 +286,13 @@ def main(argv=None) -> dict:
         print(f"check {name} {value!r} limit {limit!r}", file=sys.stderr)
     print(json.dumps(result), flush=True)
     return result
+
+
+def difference(after: dict, before: dict) -> dict:
+    """``after`` less ``before``, key by key, nested dicts too (a key
+    missing before counts from 0)."""
+    return {k: difference(v, before.get(k, {})) if isinstance(v, dict)
+            else v - before.get(k, 0) for k, v in after.items()}
 
 
 def launches_agree(got: dict, dep, S, calls, device):

@@ -1,4 +1,4 @@
-"""The traced run's readings: host syncs and the profiler's device trace.
+"""The traced run's readings: host syncs and the profiler's trace.
 
 ``SyncCounter`` is a frozen copy of ``chip_smoke.py::count_syncs`` at
 commit 64ee402 (``torch.cuda.set_sync_debug_mode("warn")`` around the
@@ -7,7 +7,8 @@ events (CUPTI), as ``grtcode_tpu_torch/bench.py::_profile_kernels`` does
 at that commit, but from the raw events: each device operation's own
 time by name, and the device's busy time as the union of the operations'
 intervals inside the traced window, so it stays right if a program runs
-work on a second stream.
+work on a second stream; and the host seconds of the program's own spans
+in the window.
 """
 from __future__ import annotations
 
@@ -93,6 +94,7 @@ class DeviceTrace:
             else:
                 host.append((s, end, e.name()))
         self.window_s = w1 * 1e-9
+        self._w1 = w1
         self.by_name = collections.Counter()
         for s, e, name in dev:
             self.by_name[name] += (e - s) * 1e-9
@@ -105,6 +107,15 @@ class DeviceTrace:
         self.busy_s = covered * 1e-9
         self._gaps = [(a, b) for a, b in gaps if b > a]
         self._host = host
+
+    def host_spans(self, prefix: str) -> dict:
+        """Host seconds by name of the spans and operations whose names
+        start with ``prefix``, each clipped to the window, summed."""
+        out = collections.Counter()
+        for s, e, name in self._host:
+            if name.startswith(prefix):
+                out[name] += (min(e, self._w1) - max(s, 0)) * 1e-9
+        return dict(out)
 
     def top_ops(self, n: int = 10) -> list:
         return [[name[:160], sec] for name, sec in
