@@ -36,7 +36,8 @@ spans ``grtcode::run``, ``inputs``, ``surface_spectra``,
 ``step_eager``, ``step_capture`` and ``step_replay``; the step's body
 under the device layers, ``grtcode::step`` around them all.
 :meth:`RadiationDriver.step_stats` reads the step cache's counts, the
-layers' device time in replays and the gas optics' line-prep counts.
+layers' device time in replays, the gas optics' line-prep counts and the
+DISORT solver's doubling counts.
 """
 from __future__ import annotations
 
@@ -175,6 +176,7 @@ class RadiationDriver:
         # ``_step_cache``), and the subcolumn keys by seed.
         self._step_cache = graphs.StepCache()
         self._keys = {}
+        self._doublings = None      # DISORT's, made at its first step
 
     def clear_cache(self) -> None:
         """Drop the driver's captured steps and give their memory back to
@@ -192,13 +194,19 @@ class RadiationDriver:
         name summed over the ``timed`` replays, and the ``untimed`` ones;
         and ``line_prep``, the lines the bands' line prep prepped against
         the catalog lines they stand for (each ``GasOptics.line_prep``,
-        which counts every caller of that gas optics).  A copy: two
-        readings differ by what ran between them."""
+        which counts every caller of that gas optics); and ``disort``, the
+        discrete-ordinates solver's doubling steps that the layers'
+        optical depths need against the steps it ran, over every step and
+        replay (:class:`..utils.metrics.DoublingCounts`; reading them
+        synchronises with the device).  A copy: two readings differ by
+        what ran between them."""
         gases = {id(g): g for g in (self.lw_gas, self.sw_gas)
                  if g is not None}.values()
         return dict(self._step_cache.stats(), line_prep={
             k: sum(getattr(g.line_prep, k) for g in gases)
-            for k in ("prepped", "catalog")})
+            for k in ("prepped", "catalog")},
+            disort=self._doublings.read() if self._doublings is not None
+            else {"needed": 0, "run": 0})
 
     def _surface_spectra(self, atm: Atmosphere):
         """Emissivity / albedo on the solver grids (linear interpolation,
@@ -506,6 +514,9 @@ class RadiationDriver:
             for gas in {g.method: g for g in gases}.values():  # per method
                 gas.check_limits(col["p_lev"], col["t_lev"])
         keys = None if clear else self._subcolumn_keys()
+        if with_sw and self.sw_solver == "disort" and self._doublings is None:
+            # Made outside the step, so that no capture allocates it.
+            self._doublings = metrics.DoublingCounts(self.device)
 
         def body(inputs):
             with metrics.layer(metrics.STEP):
@@ -619,7 +630,8 @@ class RadiationDriver:
                 with metrics.layer(metrics.DISORT):
                     fsu, fsd = disort_shortwave(
                         opt_sw.tau, opt_sw.omega, opt_sw.g, mu, albedo,
-                        col["tsi"], sol_block, nstr=self.disort_streams)
+                        col["tsi"], sol_block, nstr=self.disort_streams,
+                        doublings=self._doublings)
             elif with_sw:
                 with metrics.layer(metrics.SW):
                     fsu, fsd = shortwave_fluxes(

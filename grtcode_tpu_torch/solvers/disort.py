@@ -26,6 +26,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import metrics
+
 _DOUBLINGS = 37     # max doubling steps (covers tau up to _TAU_CLAMP)
 _DTAU_TARGET = 1e-5  # initializer sub-layer thickness
 _TAU_CLAMP = 1e6    # beyond this a layer is numerically opaque in f32
@@ -111,7 +113,8 @@ def _check_precision():
 
 def disort_shortwave(tau, omega, g, mu_dir, albedo_dir,
                      total_solar_irradiance, solar_flux, *, nstr: int = 16,
-                     deltam: bool = True, wchunk: int = 2048):
+                     deltam: bool = True, wchunk: int = 2048,
+                     doublings: metrics.DoublingCounts | None = None):
     """Discrete-ordinates SW fluxes.
 
     Args:
@@ -125,6 +128,13 @@ def disort_shortwave(tau, omega, g, mu_dir, albedo_dir,
       deltam: apply delta-M truncation scaling.
       wchunk: wavenumbers per block (bounds the (B, nlevels, wchunk, h, h)
         temporaries).
+      doublings: where each block adds, on the device, the doubling
+        steps its layers need against the steps it runs.
+
+    Each block runs under the device layers ``grtcode::disort_doubling``
+    (phase matrices, delta-M, the doublings) and
+    ``grtcode::disort_adding`` (the surface, the adding passes and the
+    flux sums).
 
     Returns (flux_up, flux_down), each (nlevels, nw) or (B, nlevels, nw)
     [W cm m-2], on tau's device.
@@ -158,9 +168,17 @@ def disort_shortwave(tau, omega, g, mu_dir, albedo_dir,
     eye = torch.eye(h, dtype=f32, device=dev)
     fbeam = tsi[:, None] * t(solar_flux)               # (B, nw)
 
-    def solve_block(tau, omega, gg, alb, mu0):
-        """(fup, fdn) of one wavenumber block, each (B, nlev, W) before
-        the beam scaling."""
+    def solve_block(tau, omega, gg, alb, mu0, beam):
+        """(fup, fdn) of one wavenumber block, each (B, nlev, W), for
+        the incident flux ``beam`` (B, W)."""
+        with metrics.layer(metrics.DISORT_DOUBLING):
+            R, T, sr, st, d = doubled(tau, omega, gg, mu0)
+        with metrics.layer(metrics.DISORT_ADDING):
+            fup, fdn = adding(R, T, sr, st, d, alb, mu0)
+            return fup * beam[:, None], fdn * beam[:, None]
+
+    def doubled(tau, omega, gg, mu0):
+        """Each layer's R, T, sr, st and direct transmittance d."""
         tau = torch.clamp(tau, 0.0, _TAU_CLAMP)
         omega = torch.clamp(omega, 0.0, 1.0)
 
@@ -185,6 +203,8 @@ def disort_shortwave(tau, omega, g, mu_dir, albedo_dir,
         k_layer = torch.clamp(
             torch.ceil(torch.log(q) / _LOG2_T),
             0.0, float(_DOUBLINGS))                    # (B, nlay, W)
+        if doublings is not None:
+            doublings.add(k_layer, _DOUBLINGS)
         dtau = tau / torch.exp(_LN2 * k_layer)
         x = (dtau[..., None] * omega[..., None] * 0.5) / mu  # (.., W, h)
         # T is tracked split as E + Tt, E = diag(exp(-tau_partial/mu))
@@ -231,10 +251,13 @@ def disort_shortwave(tau, omega, g, mu_dir, albedo_dir,
         E_fin, d = att(_DOUBLINGS)
         T = E_fin[..., :, None] * eye + Tt
         del Tt, E_fin
+        return R, T, sr, st, d
 
+    def adding(R, T, sr, st, d, alb, mu0):
+        """The block's fluxes before the beam scaling."""
         # Surface "layer": Lambertian, normalized by the quadrature's
         # sum(w mu) so that F_up(sfc) == albedo * F_down(sfc) exactly.
-        W = tau.shape[-1]
+        W = R.shape[2]
         inv_swmu = 1.0 / torch.sum(wq * mu)
         Rb = ((inv_swmu * alb[..., None, None]) * (mu * wq)).expand(
             B, W, h, h)
@@ -284,8 +307,8 @@ def disort_shortwave(tau, omega, g, mu_dir, albedo_dir,
     for s in range(0, nw, wchunk):
         e = min(s + wchunk, nw)
         fup, fdn = solve_block(tau[..., s:e], omega[..., s:e], g[..., s:e],
-                               alb[:, s:e], mu0)
-        ups.append(fup * fbeam[:, None, s:e])
-        dns.append(fdn * fbeam[:, None, s:e])
+                               alb[:, s:e], mu0, fbeam[:, s:e])
+        ups.append(fup)
+        dns.append(fdn)
     fup, fdn = torch.cat(ups, -1), torch.cat(dns, -1)
     return (fup[0], fdn[0]) if single else (fup, fdn)

@@ -24,7 +24,9 @@ cache's :class:`LayerTimes` (``RadiationDriver.step_stats()``).  Outside
 the block nothing is read.
 
 Everything here is host-side and costs nothing when unused, but for the
-layers' timing events, which a capture records into its graph.
+layers' timing events, which a capture records into its graph, and
+:class:`DoublingCounts`, which the DISORT solver adds to on the device
+(one reduction a wavenumber block).
 """
 from __future__ import annotations
 
@@ -63,8 +65,13 @@ INTEGRALS = "grtcode::integrals"            # spectral integrals, block sums
 SW = "grtcode::sw"                          # Rayleigh, two-stream solver
 CLOUD_OPTICS = "grtcode::cloud_optics"      # the all-sky tier's callback
 DISORT = "grtcode::disort"                  # the discrete-ordinates solver
+# Inside DISORT, per wavenumber block: the phase matrices, delta-M and
+# the doublings; the surface, the adding passes and the flux sums.
+DISORT_DOUBLING = "grtcode::disort_doubling"
+DISORT_ADDING = "grtcode::disort_adding"
 LAYERS = (STEP, LINE_PREP, VOIGT, ABSORBERS, BIN_INTERP, LW_SOLVER,
-          INTEGRALS, SW, CLOUD_OPTICS, DISORT)
+          INTEGRALS, SW, CLOUD_OPTICS, DISORT, DISORT_DOUBLING,
+          DISORT_ADDING)
 
 _capturing: list = []   # the layer events of each capture in progress
 _reading: list = []     # each open layer_times() block's unread steps
@@ -142,6 +149,29 @@ class LinePrepCounts:
     @property
     def share(self) -> float | None:
         return self.prepped / self.catalog if self.catalog else None
+
+
+class DoublingCounts:
+    """The discrete-ordinates solver's doubling steps: ``needed``, the
+    steps each (column, layer, wavenumber) element's optical depth needs
+    (its doubling count k), summed, against ``run``, the steps the
+    solver runs for every element.  Both are added on the device into an
+    int64 tensor made outside any capture, so each replay of a captured
+    step adds what its eager call added; :meth:`read` copies them to the
+    host, a synchronisation, so it is read outside a step."""
+
+    def __init__(self, device):
+        self.counts = torch.zeros(2, dtype=torch.int64, device=device)
+
+    def add(self, k: torch.Tensor, steps: int) -> None:
+        """Add a block's doubling counts ``k`` (whole numbers in any
+        dtype) and ``steps`` run for each of its elements."""
+        self.counts[0].add_(k.sum(dtype=torch.int64))
+        self.counts[1].add_(steps * k.numel())
+
+    def read(self) -> dict:
+        needed, run = self.counts.tolist()
+        return {"needed": needed, "run": run}
 
 
 def unread_replays():

@@ -226,8 +226,93 @@ def test_layer_times_leaves_steps_without_layers_alone(monkeypatch):
 
 def test_span_and_layer_names():
     names = metrics.SPANS + metrics.LAYERS
-    assert len(set(names)) == len(names) == 19
+    assert len(set(names)) == len(names) == 21
     assert all(n.startswith("grtcode::") for n in names)
     # The three ranges profiles read by name keep their names.
     assert (metrics.LINE_PREP, metrics.CLOUD_OPTICS, metrics.DISORT) == (
         "grtcode::line_prep", "grtcode::cloud_optics", "grtcode::disort")
+
+
+def _doublings_needed(tau, omega, g, nstr):
+    """Each element's doubling count, worked out in float64 from its
+    delta-M scaled optical depth: the least k >= 0 with tau / 2^k <= 1e-5,
+    at most 37; and how many elements lie within 1e-4 of a step of log2,
+    where the solver's float32 logarithm may round to the other side."""
+    tau, omega, g = (np.asarray(a, np.float64) for a in (tau, omega, g))
+    scaled = (1.0 - omega * g ** nstr) * tau
+    q = np.log2(np.maximum(scaled, 1e-30) / 1e-5)
+    k = np.clip(np.ceil(q), 0, 37)
+    edge = (np.abs(q - np.round(q)) < 1e-4) & (q > -1.0) & (q < 37.0)
+    return int(k.sum()), int(edge.sum())
+
+
+def test_disort_counts_the_doublings_its_layers_need():
+    """The solver's device counter against the counts worked out from its
+    inputs, over three wavenumber blocks, each block's two layers once;
+    a second call adds as much again."""
+    from grtcode_tpu_torch.solvers.disort import disort_shortwave
+
+    rng = np.random.default_rng(7)
+    B, nl, nw, nstr = 2, 5, 40, 4
+    tau = (10.0 ** rng.uniform(-7, 4, (B, nl, nw))).astype(np.float32)
+    omega = rng.uniform(0, 1, (B, nl, nw)).astype(np.float32)
+    g = rng.uniform(0, 0.9, (B, nl, nw)).astype(np.float32)
+    args = [torch.as_tensor(a) for a in (tau, omega, g)] + [
+        torch.tensor([0.5, 0.8]), torch.full((B, nw), 0.2),
+        torch.tensor([1361.0, 1361.0]), torch.ones(nw)]
+    counts = metrics.DoublingCounts("cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        disort_shortwave(*args, nstr=nstr, wchunk=16, doublings=counts)
+    ranges = collections.Counter(e.name for e in prof.events())
+    assert ranges[metrics.DISORT_DOUBLING] == ranges[
+        metrics.DISORT_ADDING] == 3
+    needed, edge = _doublings_needed(tau, omega, g, nstr)
+    got = counts.read()
+    assert got["run"] == 37 * B * nl * nw
+    assert abs(got["needed"] - needed) <= edge
+    assert 0 < got["needed"] < got["run"]
+    disort_shortwave(*args, nstr=nstr, wchunk=16, doublings=counts)
+    assert counts.read() == {k: 2 * v for k, v in got.items()}
+
+
+def test_driver_steps_read_the_disort_counts(model, monkeypatch):
+    """An eager DISORT step of a lit column on the CPU: its doubling
+    counts against those worked out from the optical depths it gave the
+    solver, DISORT's two layers under its range once a block, and no
+    counts where the shortwave is the two-stream solver."""
+    import grtcode_tpu_torch.framework.driver as driver_mod
+
+    lw, sw, solar, atm = model
+    atm = dataclasses.replace(atm.subset(np.arange(1)),
+                              cos_zenith=np.array([0.6]))
+    seen = []
+
+    def kept(tau, omega, g, *a, **k):
+        seen.append((tau.numpy().copy(), omega.numpy().copy(),
+                     g.numpy().copy()))
+        return disort(tau, omega, g, *a, **k)
+    disort = driver_mod.disort_shortwave
+    monkeypatch.setattr(driver_mod, "disort_shortwave", kept)
+    driver = RadiationDriver(lw, sw, solar, sw_solver="disort",
+                             disort_streams=4)
+    assert driver.step_stats()["disort"] == {"needed": 0, "run": 0}
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        driver.run(atm)
+    parents = collections.Counter()
+    for e in prof.events():
+        if e.name in (metrics.DISORT_DOUBLING, metrics.DISORT_ADDING):
+            parents[(e.name, e.cpu_parent.name)] += 1
+    blocks = -(-sw.grid.n // 2048)
+    assert parents == {(metrics.DISORT_DOUBLING, metrics.DISORT): blocks,
+                       (metrics.DISORT_ADDING, metrics.DISORT): blocks}
+    (tau, omega, g), = seen
+    needed, edge = _doublings_needed(tau, omega, g, 4)
+    got = driver.step_stats()["disort"]
+    assert got["run"] == 37 * tau.size
+    assert abs(got["needed"] - needed) <= edge
+    driver.run(atm)
+    assert driver.step_stats()["disort"] == {k: 2 * v
+                                             for k, v in got.items()}
+    two_stream = RadiationDriver(lw, sw, solar)
+    two_stream.run(atm)
+    assert two_stream.step_stats()["disort"] == {"needed": 0, "run": 0}
