@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-builds the two CUDA kernels from csrc/ with nvcc (K1, line_sample Voigt;
-K2, the bin-method Voigt) and drives the port's main paths,
+builds the three CUDA kernels from csrc/ with nvcc (K1, line_sample Voigt;
+K2, the bin-method Voigt; K3, DISORT's layer doubling) and drives the port's main paths,
 ``RadiationDriver(lw_gas, sw_gas, solar).run(atm)`` on a clean, clear
 atmosphere with line_sample at LW 0.1 cm-1 and with the bin method at the
 production LW 0.01 cm-1 streamed through 10 spectral blocks, the
@@ -28,9 +28,9 @@ debug.disable_jit:
      of their own, then the phase line with the torch / CUDA versions and
      the clocks, temperature and power draw; phase 5 reads them again
      under load);
-  2. both kernels (one nvcc each), the native .par scanner and the C ABI
-     shim (one g++ each) built at once, timed, with ptxas's register /
-     spill report;
+  2. the three kernels (one nvcc each), the native .par scanner and the
+     C ABI shim (one g++ each) built at once, timed, with ptxas's register
+     / spill report;
   3. K1 against its plain PyTorch version on the card: one
      synthetic molecule on the 1-3250 cm-1 grid at 0.1 cm-1, 4 x 54 rows,
      full block and a block with start > 0 at rtol 2e-6, atol 1e-12, two
@@ -82,13 +82,20 @@ debug.disable_jit:
      turns), 14 K1 launches and no plain launch,
      RSDTCSAF within 1.0 W m-2 of TSI mu0, fluxes finite and non-negative;
      (c) the same driver with the 16-stream DISORT: one untimed and three
-     timed steps, RSDTCSAF equal to the two-stream's, RSU / RSD within the
-     two-stream band, LW unchanged, a profiled step, peak memory; K1
+     timed steps, one K3 launch a 2,048-point block of the SW band (25 a
+     step) and none of the masked loop, RSDTCSAF equal to the
+     two-stream's, RSU / RSD within the two-stream band, LW unchanged, a
+     profiled step, peak memory; K1
      against its plain version on the app's own 54 rows (H2O in each band)
      at rtol 2e-6 / atol 1e-12; (d) DISORT's analytic cases on the card at
      tests/test_disort.py's bars, card against CPU (bar 1e-4 of the
      level's largest flux), and one block of 32 columns timed with its
-     peak memory;
+     peak memory; (e) K3 against its plain version (the masked loop) on
+     the card at the main path's blocks, 1 x 54 x 2,048, 1 x 54 x 848 and
+     32 x 54 x 2,048 at 16 streams, counts 0-37: R, T, sr, st and d
+     within DISORT_TOL of each layer's largest entry, one launch each,
+     the needed steps equal, each timed with its bound (kernel_bench.
+     k3_bound, from the needed doublings);
  11. the mesh and the segments: (a) a world of one NCCL rank on cuda:0,
      the line_sample cell of phase 5 on make_mesh(1, 1), bit-identical to
      run(); (b) two spawned ranks, both on cuda:0 in a gloo group (NCCL
@@ -169,8 +176,8 @@ debug.disable_jit:
      then graph, eager (debug.disable_jit), graph in turns, each timed;
      the replays bit-identical to the eager step (DISORT may instead hold
      the golden's 1e-4, cuBLAS and cuSOLVER choosing their algorithms at
-     capture); no new capture; the K1 / K2 launches of a replayed step
-     equal the eager step's; a profiled replay (busy, idle); no
+     capture); no new capture; the K1 / K2 / K3 launches of a replayed
+     step equal the eager step's; a profiled replay (busy, idle); no
      host-device sync inside a replay, and those of the whole step;
      warm-up and capture seconds; the memory the warm-up and the capture
      reserve (torch.cuda.max_memory_reserved, the allocator as the user
@@ -223,8 +230,13 @@ REPLACES = "grtcode_tpu/gas_optics/pallas_kernels.py:247"
 SOURCE = "grtcode_tpu_torch/csrc/voigt_line_sample.cu"
 REPLACES_K2 = "grtcode_tpu/gas_optics/bins_pallas.py:215"
 SOURCE_K2 = "grtcode_tpu_torch/csrc/voigt_bins.cu"
+SOURCE_K3 = "grtcode_tpu_torch/csrc/disort_doubling.cu"
 KERNEL_NAMES = {"voigt_line_sample": "voigt_line_sample_kernel",
-                "voigt_bins": "voigt_bins_kernel"}
+                "voigt_bins": "voigt_bins_kernel",
+                "disort_doubling": "disort_doubling_kernel"}
+# K3 against its plain version, of each layer's largest entry
+# (tests/test_torch_gpu.py's DISORT_TOL).
+DISORT_TOL = 1e-5
 
 
 def check(cond, msg):
@@ -416,21 +428,26 @@ def graph_turns(info, name, step, caches, tol=None):
     the memory they reserve; then in turns: replay, the eager step
     (debug.disable_jit), replay; the replays bit-identical to the eager
     step (or, with ``tol`` = (bar, reason), within the path's golden bar
-    for the reason given); no new capture; the K1 / K2 launches of each
-    replayed step equal the eager step's; one more replay with its host
+    for the reason given); no new capture; the K1 / K2 / K3 launches of
+    each replayed step equal the eager step's; one more replay with its host
     syncs counted (none inside a replay).  The memory the warm-up and the
     capture reserve, at most 1.15x what the eager step reserves."""
     import torch
     from grtcode_tpu_torch.gas_optics import bins_kernel as bk
     from grtcode_tpu_torch.gas_optics import voigt_kernel as vk
+    from grtcode_tpu_torch.solvers import disort
     from grtcode_tpu_torch.utils import debug
+
+    def counts():
+        return (vk.accumulate_voigt.launches,
+                bk.accumulate_bins_kernel.launches,
+                disort.layer_operators.launches)
 
     def entries():
         return [e for c in caches for e in c.entries.values()]
 
     def run(eager):
-        before = (vk.accumulate_voigt.launches,
-                  bk.accumulate_bins_kernel.launches)
+        before = counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if eager:
@@ -440,9 +457,8 @@ def graph_turns(info, name, step, caches, tol=None):
             out = step()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        return (_flat(out), dt, (vk.accumulate_voigt.launches - before[0],
-                                 bk.accumulate_bins_kernel.launches
-                                 - before[1]))
+        return (_flat(out), dt,
+                tuple(a - b for a, b in zip(counts(), before)))
 
     def reserving():
         """Reset the peaks with the allocator's cache given back: (the
@@ -470,7 +486,7 @@ def graph_turns(info, name, step, caches, tol=None):
     g2, tg2, lg2 = run(False)
     check(len(entries()) == n_entries, f"phase 17 {name}: a replay "
           f"captured again ({n_entries} -> {len(entries())} graphs)")
-    check(lg1 == lg2 == le, f"phase 17 {name}: K1 / K2 launches per "
+    check(lg1 == lg2 == le, f"phase 17 {name}: K1 / K2 / K3 launches per "
           f"replayed step {lg1}, {lg2}, per eager step {le}")
     check(list(g2) == list(eager), f"phase 17 {name}: outputs differ")
     same = all(torch.equal(g1[k], eager[k]) and torch.equal(g2[k], eager[k])
@@ -521,7 +537,7 @@ def _turns_line(name, r):
         f"{r['peak_gib']:.2f} GiB vs eager {r['eager_peak_gib']:.2f}, "
         + ("bit-identical" if r["bit_identical"] else
            f"worst rel {r['worst_rel']:.2e} < {r['tol'][0]} ({r['tol'][1]})")
-        + f", K1/K2 {r['launches_per_step']} a step, replay "
+        + f", K1/K2/K3 {r['launches_per_step']} a step, replay "
         + (f"busy {prof['busy_ms']:.1f} ms, idle {prof['idle_share']:.1%}"
            if "busy_ms" in prof else "profile not measured")
         + f", host syncs {r['replay_syncs']} inside the replays and "
@@ -568,14 +584,16 @@ def phase_card(info):
 
 
 def phase_build(info):
-    """Both kernels (one nvcc each), the .par scanner and the C ABI shim
-    (one g++ each), started together."""
+    """The three kernels (one nvcc each), the .par scanner and the C ABI
+    shim (one g++ each), started together."""
     from concurrent.futures import ThreadPoolExecutor
     from grtcode_tpu_torch import bindings, native
     from grtcode_tpu_torch.gas_optics import bins_kernel as bk
     from grtcode_tpu_torch.gas_optics import voigt_kernel as vk
+    from grtcode_tpu_torch.solvers import disort
 
     builds = {"voigt_line_sample": vk.build, "voigt_bins": bk.build,
+              "disort_doubling": disort.build,
               "hitran_parser": native.available,
               "grtcode_tpu_c": bindings.build}
 
@@ -593,14 +611,15 @@ def phase_build(info):
     secs = {name: s for name, (s, _) in done.items()}
     info["build_s"] = dict(secs, total=total)
     reports = []
-    for name, mod in (("voigt_line_sample", vk), ("voigt_bins", bk)):
+    for name, mod in (("voigt_line_sample", vk), ("voigt_bins", bk),
+                      ("disort_doubling", disort)):
         info[f"build_log_{name}"] = mod.build_log
         ptxas = " | ".join(ln.strip() for ln in mod.build_log.splitlines()
                            if "registers" in ln or "spill" in ln)
         reports.append(f"{name} {secs[name]:.2f} s ({ptxas or 'cached'})")
     reports += [f"{name} {secs[name]:.2f} s (g++)"
                 for name in ("hitran_parser", "grtcode_tpu_c")]
-    print(f"phase 2 build: {total:.2f} s for all four: " + "; ".join(reports),
+    print(f"phase 2 build: {total:.2f} s for all five: " + "; ".join(reports),
           flush=True)
 
 
@@ -1540,14 +1559,17 @@ def phase_circ_app(info, dev, card, d):
     the 16-stream DISORT, then DISORT's analytic cases and the card against
     the CPU.  The .par and the input tables are written into directory
     ``d`` (phase 14 reads them again).  Returns K1's launches on the app's
-    run and the four DISORT steps (one count from 0), and K1's largest
-    error against the plain version on the app's driver."""
+    run and the four DISORT steps (one count from 0), K1's largest error
+    against the plain version on the app's driver, and K3's reading
+    (:func:`disort_kernel_vs_plain`)."""
     import dataclasses
+    import inspect
     import torch
     from tools.goldens import driver_inputs
     from grtcode_tpu_torch.apps import circ
     from grtcode_tpu_torch.gas_optics import gas_optics as go
     from grtcode_tpu_torch.gas_optics import voigt_kernel as vk
+    from grtcode_tpu_torch.solvers import disort
     from grtcode_tpu_torch.solvers.disort import disort_shortwave
     from grtcode_tpu_torch.spectral import SpectralGrid
 
@@ -1647,17 +1669,35 @@ def phase_circ_app(info, dev, card, d):
                                   disort_streams=16)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    # K3: one launch a wavenumber block of the lit column's SW band, and
+    # the masked loop never on the card.
+    wchunk = inspect.signature(disort_shortwave).parameters["wchunk"].default
+    k3_per_step = -(-ddriver.sw_gas.grid.n // wchunk)
+    disort.layer_operators.launches = 0
+    plain_loop = disort.layer_operators_plain
+
+    def no_loop(dtau, *a, **k):
+        check(dtau.device.type == "cpu", "the masked loop ran on the card")
+        return plain_loop(dtau, *a, **k)
+    disort.layer_operators_plain = no_loop
     step_s = []
-    for i in range(4):
-        before = vk.accumulate_voigt.launches
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        dres = ddriver.run(atm, integrated=True).tiers["csaf"]
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t1)
-        check(vk.accumulate_voigt.launches - before == per_run,
-              f"DISORT step {i}: {vk.accumulate_voigt.launches - before} K1 "
-              f"launches, expected {per_run}")
+    try:
+        for i in range(4):
+            before = (vk.accumulate_voigt.launches,
+                      disort.layer_operators.launches)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            dres = ddriver.run(atm, integrated=True).tiers["csaf"]
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t1)
+            k1 = vk.accumulate_voigt.launches - before[0]
+            k3 = disort.layer_operators.launches - before[1]
+            check(k1 == per_run, f"DISORT step {i}: {k1} K1 launches, "
+                  f"expected {per_run}")
+            check(k3 == k3_per_step, f"DISORT step {i}: {k3} K3 launches, "
+                  f"expected {k3_per_step}")
+    finally:
+        disort.layer_operators_plain = plain_loop
     launches = vk.accumulate_voigt.launches
     check(vk.voigt_line_sample_reference.launches == 0,
           "the plain version ran in the DISORT steps")
@@ -1682,10 +1722,13 @@ def phase_circ_app(info, dev, card, d):
     graph_turns(info, "CIRC two-stream",
                 lambda: driver.run(atm, integrated=True),
                 [driver._step_cache])
-    graph_turns(info, "CIRC DISORT", lambda: ddriver.run(atm, integrated=True),
-                [ddriver._step_cache],
-                tol=(TOL_GOLDEN, "cuBLAS and cuSOLVER may pick other "
-                     "algorithms inside a capture"))
+    turns = graph_turns(
+        info, "CIRC DISORT", lambda: ddriver.run(atm, integrated=True),
+        [ddriver._step_cache], tol=(TOL_GOLDEN, "cuBLAS and cuSOLVER may "
+                                    "pick other algorithms inside a capture"))
+    check(turns["launches_per_step"][2] == k3_per_step,
+          f"phase 17 CIRC DISORT: {turns['launches_per_step'][2]} K3 "
+          f"launches a replayed step, expected {k3_per_step}")
     breakdown = profile_step(lambda: ddriver.run(atm, integrated=True))
     disort_share = breakdown.get("disort_ms", 0.0) / breakdown["busy_ms"] \
         if "busy_ms" in breakdown else None
@@ -1742,6 +1785,8 @@ def phase_circ_app(info, dev, card, d):
     block_ms = cuda_ms(lambda: disort_shortwave(*batched), 1)
     block_peak = torch.cuda.max_memory_allocated() - base
     del batched
+    # (e) K3 against the masked loop at the main path's blocks.
+    k3 = disort_kernel_vs_plain(dev)
 
     info["phase10"] = dict(
         card=card, records=n_records, lines=lines, write_s=write_s,
@@ -1759,7 +1804,9 @@ def phase_circ_app(info, dev, card, d):
         k1_bound_by={b: bound_by.count(b) for b in set(bound_by)},
         k1_vs_plain=k1_vs_plain, analytic_share=analytic,
         card_vs_cpu=card_vs_cpu, disort_b32_block_ms=block_ms,
-        disort_b32_block_peak_bytes=block_peak)
+        disort_b32_block_peak_bytes=block_peak, k3_per_step=k3_per_step,
+        k3_profiled_ms=breakdown.get("kernel_ms", {}).get("disort_doubling"),
+        k3=k3)
     table = ", ".join(
         f"{k} {v:.2f} (LBLRTM {circ.CASE1_REFERENCE[k]['lblrtm']})"
         for k, v in values.items())
@@ -1772,7 +1819,8 @@ def phase_circ_app(info, dev, card, d):
           f"H2O lines, in turns: native {np.mean(scan['native']):.3f} s, "
           f"Python {np.mean(scan['python']):.3f} s), {app_launches} K1 "
           f"launches, no plain launch; {table}; 16-stream DISORT step "
-          f"{ms:.1f} ms (steps {[round(v, 3) for v in step_s]} s) against "
+          f"{ms:.1f} ms (steps {[round(v, 3) for v in step_s]} s, "
+          f"{k3_per_step} K3 launches each, no masked loop) against "
           f"the two-stream step's {two_ms:.1f} ms ({added_share:.1%} of the "
           f"step added by DISORT), DISORT "
           f"{breakdown.get('disort_ms', 0.0):.1f} ms of the profiled step's "
@@ -1790,8 +1838,86 @@ def phase_circ_app(info, dev, card, d):
           f"{card_vs_cpu:.2e} of the level's largest flux (bar 1e-4); one "
           f"DISORT block of 32 columns x 54 layers x 2048 points "
           f"{block_ms:.1f} ms, peak {block_peak / 2 ** 30:.2f} GiB above "
-          f"its inputs", flush=True)
-    return launches, k1_err
+          f"its inputs; K3 vs plain: {k3['summary']}", flush=True)
+    return launches, k1_err, k3
+
+
+def disort_kernel_vs_plain(dev):
+    """Phase 10 (e): K3 (``disort.layer_operators``) against its plain
+    version (``layer_operators_plain``, the masked loop) on the card at
+    the main path's blocks at 16 streams: the CIRC cell's 2,048-point
+    block and its 848-point tail on one column, and chip_smoke's block of
+    32 columns; 54 layers, counts 0-37 (tau log-uniform over 1e-9-0.3, at
+    every 8th wavenumber over 0.3-1e7, and 0, 1e-12, 1e-5, 2e-5, the
+    clamp and beyond it), omega under 0.99 as tests/test_torch_gpu.py's
+    inputs.  R, T, sr, st and d within DISORT_TOL of each layer's largest
+    entry, one launch each, the needed steps equal; each block timed, K3
+    and the masked loop, with K3's bound from its needed doublings."""
+    import torch
+    from grtcode_tpu_torch.kernel_bench import k3_bound
+    from grtcode_tpu_torch.solvers import disort
+    from grtcode_tpu_torch.utils import metrics
+
+    nstr, h = 16, 8
+    rng = np.random.default_rng(11)
+    blocks = {}
+    for B, nw in ((1, 2048), (1, 848), (32, 2048)):
+        tau = 10.0 ** rng.uniform(-9, -0.5, (B, 54, nw))
+        tau[..., ::8] = 10.0 ** rng.uniform(-0.5, 7, tau[..., ::8].shape)
+        tau[:, 0, :6] = [0.0, 1e-12, 1e-5, 2e-5, 1e6, 1e12]
+        f32 = [torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (
+            tau, rng.uniform(0, 0.99, tau.shape),
+            rng.uniform(-0.2, 0.9, tau.shape), rng.uniform(0.05, 1.0, B))]
+        sub = disort.sublayers(*f32[:3], nstr)
+        mu0 = f32[3]
+        args = (*sub, mu0, *disort.beam_vectors(mu0, nstr))
+        counts = [metrics.DoublingCounts(dev) for _ in range(2)]
+        before = disort.layer_operators.launches
+        got = disort.layer_operators(*args, doublings=counts[0])
+        want = disort.layer_operators_plain(*args, doublings=counts[1])
+        torch.cuda.synchronize()
+        launches = disort.layer_operators.launches - before
+        check(launches == 1, f"K3 {B}x54x{nw}: {launches} launches")
+        worst = worst_abs = 0.0
+        for name, a, b in zip(("R", "T", "sr", "st", "d"), got, want):
+            check(bool(torch.isfinite(a).all()),
+                  f"K3 {B}x54x{nw}: {name} not finite")
+            dims = tuple(range(2, b.dim()))
+            scale = b.abs().amax(dim=dims, keepdim=True).clamp(min=1e-30)
+            err = float(((a - b).abs() / scale).max())
+            check(err < DISORT_TOL, f"K3 {B}x54x{nw}: {name} {err:.2e} of "
+                  f"the layer's largest entry, bar {DISORT_TOL}")
+            worst = max(worst, err)
+            worst_abs = max(worst_abs, float((a - b).abs().max()))
+        k = sub[3]
+        kmin, kmax = int(k.min()), int(k.max())
+        check(kmin == 0 and kmax == 37, f"K3 {B}x54x{nw}: counts "
+              f"{kmin}-{kmax}, expected 0-37")
+        read = [c.read() for c in counts]
+        check(read[0]["needed"] == read[1]["needed"],
+              f"K3 {B}x54x{nw}: needed {read[0]['needed']} vs the plain "
+              f"loop's {read[1]['needed']}")
+        del got, want
+        ms = cuda_ms(lambda: disort.layer_operators(*args), 5)
+        plain_ms = cuda_ms(lambda: disort.layer_operators_plain(*args), 1)
+        bound = k3_bound(read[0]["needed"], k.numel(), h)
+        blocks[f"{B}x54x{nw}"] = dict(
+            max_rel_err=worst, max_abs_err=worst_abs, ms=ms,
+            plain_ms=plain_ms,
+            needed=read[0]["needed"], run=read[0]["run"],
+            elements=k.numel(), **bound)
+        del args, sub, f32
+        torch.cuda.empty_cache()
+    summary = "; ".join(
+        f"{name} {b['max_rel_err']:.2e} of the layer's largest entry (bar "
+        f"{DISORT_TOL}), {b['ms']:.3f} ms vs the masked loop's "
+        f"{b['plain_ms']:.1f} ms, bound {b['bound_ms']:.3f} ms by "
+        f"{b['bound_by']} ({b['bound_ms'] / b['ms']:.1%} of it reached), "
+        f"needed {b['needed']} of {b['run']} run steps"
+        for name, b in blocks.items())
+    return dict(blocks=blocks, summary=summary,
+                max_rel_err=max(b["max_rel_err"] for b in blocks.values()),
+                max_abs_err=max(b["max_abs_err"] for b in blocks.values()))
 
 
 def _run_on_rank(run, caches=()):
@@ -3085,7 +3211,8 @@ def main():
     launches9 = phase_allsky(info, dev, info["card"])
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as app_dir:
-        launches10, err10 = phase_circ_app(info, dev, info["card"], app_dir)
+        launches10, err10, k3 = phase_circ_app(info, dev, info["card"],
+                                               app_dir)
         torch.cuda.empty_cache()
         cell, launches11 = phase_mesh(info, dev, info["card"])
         launches12 = phase_aux(info, dev, info["card"], cell)
@@ -3116,7 +3243,13 @@ def main():
     # the f32 scatter GasOptics.  K2 runs on phase 8's streamed
     # steps and phase 15's bin-method bench.
     # No PyTorch call computes a Voigt sum over a line list: library_ms is
-    # null for both.
+    # null for both.  K3 runs in phase 10 only (the CIRC DISORT steps, their
+    # captured replays and profile, the analytic cases, card against CPU,
+    # the 32-column block and (e)): its launches are its dispatcher's count
+    # since (c); ms, plain_ms and the bound are (e)'s CIRC block, 1 x 54 x
+    # 2,048; no library call runs DISORT's doubling: library_ms null.
+    from grtcode_tpu_torch.solvers import disort
+    k3_cell = k3["blocks"]["1x54x2048"]
     print(json.dumps({"kernels": [
         {"name": "voigt_line_sample", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES,
@@ -3134,7 +3267,14 @@ def main():
          "max_abs_err": max(err6, o2_bins["max_abs_err"]),
          "ms": o2_bins["ms"], "plain_ms": o2_bins["plain_ms_mean"],
          "bound_ms": o2_bins["bound_ms"], "bound_by": o2_bins["bound_by"],
-         "library_ms": None}]}))
+         "library_ms": None},
+        {"name": "disort_doubling", "route": "cuda", "source": SOURCE_K3,
+         "replaces": None, "launches": disort.layer_operators.launches,
+         "max_abs_err": k3["max_abs_err"],
+         "max_rel_err": k3["max_rel_err"], "ms": k3_cell["ms"],
+         "plain_ms": k3_cell["plain_ms"], "bound_ms": k3_cell["bound_ms"],
+         "bound_by": k3_cell["bound_by"], "library_ms": None,
+         "blocks": k3["blocks"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

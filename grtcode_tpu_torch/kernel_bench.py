@@ -1,12 +1,13 @@
-"""Work counts, bounds and A/B timing of the port's two CUDA kernels.
+"""Work counts, bounds and A/B timing of the port's CUDA kernels.
 
 The census counts what a kernel call has to compute at given inputs: the
 (row, line, point) samples by Humlicek region, and how the kernel's walks
 split them (zones for K1, block kinds for K2).  :func:`bound_ms` turns a
 census into the least time the card could take: the larger of the bytes
 over the memory rate and the f32 operations over the f32 rate, with the
-operations counted per sample by region (:data:`OPS`).  ``chip_smoke.py``
-reports both for the main path's shapes.
+operations counted per sample by region (:data:`OPS`); :func:`k3_bound`
+does the same for DISORT's doubling kernel from its elements' needed
+doublings.  ``chip_smoke.py`` reports them for the main path's shapes.
 
 Run as a script, it times this package's kernels against those of another
 checkout of the repo on the main path's shapes, in turns (other, this,
@@ -280,6 +281,38 @@ def k2_bound(prep, ranges, bins, *, start_bin: int, nbins: int) -> dict:
     reached = lines_reached(ranges, start_bin, nbins)
     nbytes = 4 * rows * (5 * reached + 1 + 2 * nbins * (bins.ppb + NIP))
     return dict(bound_ms(samples, nbytes), census=cen)
+
+
+def k3_ops(h: int) -> dict:
+    """f32 operations of DISORT's doubling kernel for one element with h
+    streams a hemisphere (each add, multiply, division and exp one
+    operation; a fused multiply-add two): ``step``, one executed doubling
+    (six h x h products, four matrix-vector products, the LU with partial
+    pivoting and its h + 1 right-hand sides, the elementwise updates and
+    the attenuations); ``init``, the initializer's phase matrices and
+    single-scattering operators; ``bytes``, an element's inputs (dtau,
+    omega, k, 2h + 1 moments) read and its R, T, sr, st and d written
+    once."""
+    tri, sq = h * (h - 1) // 2, (h - 1) * h * (2 * h - 1) // 6
+    solve = 2 * sq + tri + 4 * (h + 1) * tri + (h + 1) * h
+    step = 12 * h ** 3 + 8 * h ** 2 + solve + 13 * h ** 2 + 20 * h
+    moments = 2 * h + 1
+    init = h * (5 + 4 * moments * h + 4 * moments + 4 * h)
+    return {"step": step, "init": init,
+            "bytes": 4 * (3 + moments + 2 * h * h + 2 * h + 1)}
+
+
+def k3_bound(needed: int, elements: int, h: int) -> dict:
+    """The bound of DISORT's doubling kernel on ``elements`` elements whose
+    counts sum to ``needed`` doublings: only the needed steps counted (the
+    steps a warp's lanes wait on a neighbour are the kernel's own loss)."""
+    per = k3_ops(h)
+    ops = needed * per["step"] + elements * per["init"]
+    nbytes = elements * per["bytes"]
+    t_ops, t_bytes = ops / PEAK_F32_OPS, nbytes / PEAK_BYTES
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops": float(ops), "bytes": float(nbytes)}
 
 
 # ---------------------------------------------------------------------------

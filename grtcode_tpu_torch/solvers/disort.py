@@ -7,9 +7,18 @@ the reference's optional cdisort adapter computes it.  Each homogeneous
 layer's diffuse reflection / transmission operators (h x h matrices, h =
 nstr/2 Gauss streams per hemisphere) are built by matrix doubling from an
 infinitesimal single-scattering initializer, and layers combine with the
-matrix adding method.  Everything is batched (column, layer, wavenumber)
-8 x 8 products and solves; there is no data-dependent control flow and no
-eigendecomposition.
+matrix adding method.  There is no eigendecomposition.
+
+The doubling runs where the tensors lie (:func:`layer_operators`): on the
+CPU as the plain loop, batched (column, layer, wavenumber) 8 x 8 products
+and solves that run every element's 37 doublings and keep, by a mask, only
+those its count needs; on the card as one hand-written CUDA kernel a
+wavenumber block (``csrc/disort_doubling.cu``), in which each element runs
+only its own count.  The kernel replaces no Pallas kernel (the JAX
+package's solver is plain JAX); it was added because the masked loop ran
+every doubling of every element as ~40 library launches of 8 x 8 tiles,
+far below the card's f32 rate, which (not device memory) bounds the
+kernel.  The adding passes are batched products and solves on both.
 
 The 8 x 8 products need full float32 matmuls: the solver refuses to run
 while ``torch.get_float32_matmul_precision()`` is not "highest" (PyTorch's
@@ -23,10 +32,14 @@ wavenumber [W cm m-2].
 """
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
-from ..utils import metrics
+from ..cuda_build import build_library
+from ..utils import debug, metrics
+from ..utils.graphs import count_launches
 
 _DOUBLINGS = 37     # max doubling steps (covers tau up to _TAU_CLAMP)
 _DTAU_TARGET = 1e-5  # initializer sub-layer thickness
@@ -39,7 +52,11 @@ _LN2 = float(np.float32(np.log(2.0)))
 # divided by them), built once.
 _DTAU_TARGET_T = torch.tensor(_DTAU_TARGET, dtype=torch.float32)
 _LOG2_T = torch.log(torch.tensor(2.0))
+# The stream counts the card's doubling kernel is built for.
+STREAMS_ON_CARD = (4, 8, 16)
 _stream_tables: dict = {}
+_lib = None
+build_log = ""   # nvcc / ptxas output of the last build (registers, smem)
 
 
 def gauss_streams(nstr: int):
@@ -84,8 +101,8 @@ def _mv(a, v):
 def _streams_on(nstr: int, device):
     """The quadrature's f32 tables on ``device``, built once per stream
     count: streams mu and weights (h,), the (L+1, h, h) same- and
-    opposite-hemisphere Legendre products, P_l(mu_i) (L+1, h) and the
-    signs (-1)^l (L+1,)."""
+    opposite-hemisphere Legendre products, P_l(mu_i) (L+1, h), the signs
+    (-1)^l (L+1,) and the orders l (L+1,)."""
     key = (nstr, torch.device(device))
     if key not in _stream_tables:
         mu_np, w_np = gauss_streams(nstr)
@@ -99,8 +116,198 @@ def _streams_on(nstr: int, device):
                       coef[:, None, None] * pl[:, :, None] * pl[:, None, :],
                       (coef * sign)[:, None, None] * pl[:, :, None]
                       * pl[:, None, :],
-                      pl, sign))
+                      pl, sign, np.arange(lmax + 1)))
     return _stream_tables[key]
+
+
+def beam_vectors(mu0, nstr: int):
+    """The beam's Legendre weights for the phase vectors: P_l(mu_i) (2l+1)
+    P_l(mu0) (``beam_m``) and the same times (-1)^l (``beam_p``), each
+    (B, L+1, h) for beam cosines ``mu0`` (B,)."""
+    _, _, _, _, pl, sign, ls = _streams_on(nstr, mu0.device)
+    base = (2.0 * ls + 1.0) * _legendre_mu0(mu0, nstr).T
+    beam_m = (pl * base[..., None]).contiguous()
+    return (sign[:, None] * beam_m).contiguous(), beam_m
+
+
+def sublayers(tau, omega, g, nstr: int, deltam: bool = True):
+    """Each (column, layer, wavenumber) element's doubling inputs: its
+    initializer sub-layer's optical depth ``dtau``, its single-scatter
+    albedo and HG moments ``chi`` (B, nlay, W, L+1), both delta-M scaled
+    when ``deltam``, and its doubling count ``k`` (f32 whole numbers,
+    0.._DOUBLINGS): dtau = tau / 2^k stays near _DTAU_TARGET, thin layers
+    use k = 0."""
+    ls = _streams_on(nstr, tau.device)[6]
+    tau = torch.clamp(tau, 0.0, _TAU_CLAMP)
+    omega = torch.clamp(omega, 0.0, 1.0)
+
+    # HG moments chi_l = g^l, optionally delta-M scaled (f = g^nstr).
+    chi = g[..., None] ** ls                           # (B, nlay, W, L+1)
+    if deltam:
+        f = g ** nstr
+        chi = (chi - f[..., None]) / (1.0 - f[..., None])
+        tau_s = (1.0 - omega * f) * tau
+        omega = (1.0 - f) * omega / (1.0 - omega * f)
+        tau = tau_s
+
+    q = torch.clamp(tau, min=1e-30) / _DTAU_TARGET_T
+    k = torch.clamp(torch.ceil(torch.log(q) / _LOG2_T), 0.0,
+                    float(_DOUBLINGS))                 # (B, nlay, W)
+    return tau / torch.exp(_LN2 * k), omega, chi, k
+
+
+def layer_operators_plain(dtau, omega, chi, k, mu0, beam_p, beam_m, *,
+                          doublings: metrics.DoublingCounts | None = None):
+    """Each element's R, T (B, nlay, W, h, h), sr, st (B, nlay, W, h) and
+    direct transmittance d (B, nlay, W), by _DOUBLINGS masked doublings of
+    its initializer: a step past an element's count ``k`` leaves it as it
+    was.  The plain version of :func:`layer_operators`; adds _DOUBLINGS
+    run steps an element to ``doublings``.  Computes in the inputs' dtype
+    (float32 on the solver's path; in float64 it is a witness of the
+    same method's arithmetic, on the same float32 quadrature tables)."""
+    nstr = chi.shape[-1] - 1
+    h = nstr // 2
+    mu, wq, ppp_l, ppm_l = (t.to(dtau.dtype)
+                            for t in _streams_on(nstr, dtau.device)[:4])
+    eye = torch.eye(h, dtype=dtau.dtype, device=dtau.device)
+    if doublings is not None:
+        doublings.add(k, _DOUBLINGS)
+
+    # Phase matrices and beam phase vectors.
+    p_pp = torch.einsum("bnwl,lij->bnwij", chi, ppp_l)
+    p_pm = torch.einsum("bnwl,lij->bnwij", chi, ppm_l)
+    pb_p = torch.einsum("bnwl,bli->bnwi", chi, beam_p)
+    pb_m = torch.einsum("bnwl,bli->bnwi", chi, beam_m)
+
+    x = (dtau[..., None] * omega[..., None] * 0.5) / mu  # (.., W, h)
+    # T is tracked split as E + Tt, E = diag(exp(-tau_partial/mu))
+    # recomputed analytically at every doubling level.
+    Tt = x[..., None] * p_pp * wq                      # scattered part
+    R = x[..., None] * p_pm * wq
+    sr = x * pb_p
+    st = x * pb_m
+    del p_pp, p_pm, pb_p, pb_m
+    mu0_b = mu0[:, None, None]
+
+    def att(i):
+        """Analytic E (diffuse diag) and d (direct) at doubling level
+        i, i.e. sub-layer thickness dtau * 2^i."""
+        t_i = dtau * torch.exp(_LN2 * torch.clamp(k, max=float(i)))
+        return torch.exp(-t_i[..., None] / mu), torch.exp(-t_i / mu0_b)
+
+    for i in range(_DOUBLINGS):
+        E, d = att(i)
+        m = eye - R @ R
+        # With T_full = diag(E) + Tt and M = m^-1, the doubled operators
+        # are T' = T_full M T_full and R' = R + T_full R M T_full, the
+        # diag(E) products kept as row / column scalings:
+        #   Sd := M T_full - diag(E) = Tt + M R (R T_full).
+        RT = R * E[..., None, :] + R @ Tt              # R @ T_full
+        rhs = st + _mv(R, sr * d[..., None])
+        # One solve for both right-hand sides: [R RT | rhs].
+        sol = torch.linalg.solve_ex(
+            m, torch.cat([R @ RT, rhs[..., None]], -1))[0]
+        Sd = Tt + sol[..., :h]
+        D = sol[..., h]
+        RS = R * E[..., None, :] + R @ Sd              # R @ M @ T_full
+        R_n = R + E[..., :, None] * RS + Tt @ RS
+        Tt_n = E[..., :, None] * Sd + Tt * E[..., None, :] + Tt @ Sd
+        U = _mv(R, D) + sr * d[..., None]
+        sr_n = sr + E * U + _mv(Tt, U)
+        st_n = st * d[..., None] + E * D + _mv(Tt, D)
+        do = float(i) < k
+        R = torch.where(do[..., None, None], R_n, R)
+        Tt = torch.where(do[..., None, None], Tt_n, Tt)
+        sr = torch.where(do[..., None], sr_n, sr)
+        st = torch.where(do[..., None], st_n, st)
+        del E, m, RT, rhs, sol, Sd, D, RS, R_n, Tt_n, U, sr_n, st_n, do
+    E_fin, d = att(_DOUBLINGS)
+    T = E_fin[..., :, None] * eye + Tt
+    return R, T, sr, st, d
+
+
+def build():
+    """Compile the doubling kernel (once per source hash) and load it."""
+    global _lib, build_log
+    if _lib is not None:
+        return _lib
+    lib, build_log = build_library("disort_doubling")
+    fn = lib.disort_doubling
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 17
+                   + [ctypes.c_int64] * 2 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    _lib = lib
+    return lib
+
+
+def _check_cuda_args(named: dict, B: int, nlay: int, W: int, h: int):
+    L1 = 2 * h + 1
+    shapes = {"dtau": (B, nlay, W), "omega": (B, nlay, W),
+              "k": (B, nlay, W), "chi": (B, nlay, W, L1), "mu0": (B,),
+              "beam_p": (B, L1, h), "beam_m": (B, L1, h)}
+    device = named["dtau"].device
+    for name, t in named.items():
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, dtau on {device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} has dtype {t.dtype}, expected "
+                             "torch.float32")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if tuple(t.shape) != shapes[name]:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                             f"expected {shapes[name]}")
+
+
+@count_launches
+def layer_operators(dtau, omega, chi, k, mu0, beam_p, beam_m, *,
+                    doublings: metrics.DoublingCounts | None = None):
+    """Each element's R, T, sr, st and d from its initializer by its own
+    ``k`` doublings (see :func:`layer_operators_plain` for the shapes).
+
+    CPU tensors take the plain version.  CUDA tensors launch the doubling
+    kernel (``csrc/disort_doubling.cu``, built for the stream counts of
+    ``STREAMS_ON_CARD``) or raise; it never falls back.  The kernel runs
+    each warp's elements in lockstep to their largest count, and adds
+    those element-steps to ``doublings``' run itself."""
+    device = dtau.device
+    if device.type == "cpu":
+        return layer_operators_plain(dtau, omega, chi, k, mu0, beam_p,
+                                     beam_m, doublings=doublings)
+    if device.type != "cuda":
+        raise ValueError(f"layer_operators: unsupported device {device}")
+    nstr = chi.shape[-1] - 1
+    if nstr not in STREAMS_ON_CARD:
+        raise ValueError(
+            f"the DISORT doubling kernel is built for nstr "
+            f"{', '.join(map(str, STREAMS_ON_CARD))}; got nstr {nstr}")
+    h = nstr // 2
+    B, nlay, W = dtau.shape
+    _check_cuda_args(dict(dtau=dtau, omega=omega, chi=chi, k=k, mu0=mu0,
+                          beam_p=beam_p, beam_m=beam_m), B, nlay, W, h)
+    mu, wq, ppp_l, ppm_l = _streams_on(nstr, device)[:4]
+    R = torch.empty((B, nlay, W, h, h), dtype=torch.float32, device=device)
+    T = torch.empty_like(R)
+    sr = torch.empty((B, nlay, W, h), dtype=torch.float32, device=device)
+    st = torch.empty_like(sr)
+    d = torch.empty((B, nlay, W), dtype=torch.float32, device=device)
+    run = None
+    if doublings is not None:
+        doublings.add_needed(k)
+        run = doublings.run_ptr(device)
+    lib = build()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.disort_doubling(
+        h, dtau.data_ptr(), omega.data_ptr(), chi.data_ptr(), k.data_ptr(),
+        mu0.data_ptr(), beam_p.data_ptr(), beam_m.data_ptr(), mu.data_ptr(),
+        wq.data_ptr(), ppp_l.data_ptr(), ppm_l.data_ptr(), R.data_ptr(),
+        T.data_ptr(), sr.data_ptr(), st.data_ptr(), d.data_ptr(), run,
+        B * nlay * W, nlay * W, _LN2, stream)
+    if err != 0:
+        raise RuntimeError(f"disort_doubling launch failed: CUDA error {err}")
+    layer_operators.launches += 1
+    debug.check_kernel_output("disort_doubling", (R, T, sr, st, d))
+    return R, T, sr, st, d
 
 
 def _check_precision():
@@ -132,7 +339,8 @@ def disort_shortwave(tau, omega, g, mu_dir, albedo_dir,
         steps its layers need against the steps it runs.
 
     Each block runs under the device layers ``grtcode::disort_doubling``
-    (phase matrices, delta-M, the doublings) and
+    (delta-M, the doubling counts and :func:`layer_operators`: on the
+    card the doubling kernel, one launch a block) and
     ``grtcode::disort_adding`` (the surface, the adding passes and the
     flux sums).
 
@@ -158,13 +366,9 @@ def disort_shortwave(tau, omega, g, mu_dir, albedo_dir,
     B, nlayers, nw = tau.shape
 
     h = nstr // 2
-    lmax = nstr
-    mu, wq, ppp_l, ppm_l, pl_dev, sign = _streams_on(nstr, dev)
-    ls = torch.arange(lmax + 1, dtype=f32, device=dev)
-    # (B, L+1, h): P_l(mu_i) (2l+1) P_l(mu0), and with (-1)^l.
-    base = (2.0 * ls + 1.0) * _legendre_mu0(mu0, lmax).T
-    beam_m = pl_dev * base[..., None]
-    beam_p = sign[:, None] * beam_m
+    mu, wq = _streams_on(nstr, dev)[:2]
+    mu0 = mu0.contiguous()
+    beam_p, beam_m = beam_vectors(mu0, nstr)
     eye = torch.eye(h, dtype=f32, device=dev)
     fbeam = tsi[:, None] * t(solar_flux)               # (B, nw)
 
@@ -172,86 +376,12 @@ def disort_shortwave(tau, omega, g, mu_dir, albedo_dir,
         """(fup, fdn) of one wavenumber block, each (B, nlev, W), for
         the incident flux ``beam`` (B, W)."""
         with metrics.layer(metrics.DISORT_DOUBLING):
-            R, T, sr, st, d = doubled(tau, omega, gg, mu0)
+            R, T, sr, st, d = layer_operators(
+                *sublayers(tau, omega, gg, nstr, deltam), mu0, beam_p,
+                beam_m, doublings=doublings)
         with metrics.layer(metrics.DISORT_ADDING):
             fup, fdn = adding(R, T, sr, st, d, alb, mu0)
             return fup * beam[:, None], fdn * beam[:, None]
-
-    def doubled(tau, omega, gg, mu0):
-        """Each layer's R, T, sr, st and direct transmittance d."""
-        tau = torch.clamp(tau, 0.0, _TAU_CLAMP)
-        omega = torch.clamp(omega, 0.0, 1.0)
-
-        # HG moments chi_l = g^l, optionally delta-M scaled (f = g^nstr).
-        chi = gg[..., None] ** ls                      # (B, nlay, W, L+1)
-        if deltam:
-            f = gg ** nstr
-            chi = (chi - f[..., None]) / (1.0 - f[..., None])
-            tau_s = (1.0 - omega * f) * tau
-            omega = (1.0 - f) * omega / (1.0 - omega * f)
-            tau = tau_s
-
-        # Phase matrices and beam phase vectors.
-        p_pp = torch.einsum("bnwl,lij->bnwij", chi, ppp_l)
-        p_pm = torch.einsum("bnwl,lij->bnwij", chi, ppm_l)
-        pb_p = torch.einsum("bnwl,bli->bnwi", chi, beam_p)
-        pb_m = torch.einsum("bnwl,bli->bnwi", chi, beam_m)
-
-        # Per-layer doubling count k: dtau = tau / 2^k stays near
-        # _DTAU_TARGET, thin layers use k = 0.
-        q = torch.clamp(tau, min=1e-30) / _DTAU_TARGET_T
-        k_layer = torch.clamp(
-            torch.ceil(torch.log(q) / _LOG2_T),
-            0.0, float(_DOUBLINGS))                    # (B, nlay, W)
-        if doublings is not None:
-            doublings.add(k_layer, _DOUBLINGS)
-        dtau = tau / torch.exp(_LN2 * k_layer)
-        x = (dtau[..., None] * omega[..., None] * 0.5) / mu  # (.., W, h)
-        # T is tracked split as E + Tt, E = diag(exp(-tau_partial/mu))
-        # recomputed analytically at every doubling level.
-        Tt = x[..., None] * p_pp * wq                  # scattered part
-        R = x[..., None] * p_pm * wq
-        sr = x * pb_p
-        st = x * pb_m
-        del chi, p_pp, p_pm, pb_p, pb_m
-        mu0_b = mu0[:, None, None]
-
-        def att(i):
-            """Analytic E (diffuse diag) and d (direct) at doubling level
-            i, i.e. sub-layer thickness dtau * 2^i."""
-            t_i = dtau * torch.exp(_LN2 * torch.clamp(k_layer, max=float(i)))
-            return torch.exp(-t_i[..., None] / mu), torch.exp(-t_i / mu0_b)
-
-        for i in range(_DOUBLINGS):
-            E, d = att(i)
-            m = eye - R @ R
-            # With T_full = diag(E) + Tt and M = m^-1, the doubled operators
-            # are T' = T_full M T_full and R' = R + T_full R M T_full, the
-            # diag(E) products kept as row / column scalings:
-            #   Sd := M T_full - diag(E) = Tt + M R (R T_full).
-            RT = R * E[..., None, :] + R @ Tt          # R @ T_full
-            rhs = st + _mv(R, sr * d[..., None])
-            # One solve for both right-hand sides: [R RT | rhs].
-            sol = torch.linalg.solve_ex(
-                m, torch.cat([R @ RT, rhs[..., None]], -1))[0]
-            Sd = Tt + sol[..., :h]
-            D = sol[..., h]
-            RS = R * E[..., None, :] + R @ Sd          # R @ M @ T_full
-            R_n = R + E[..., :, None] * RS + Tt @ RS
-            Tt_n = E[..., :, None] * Sd + Tt * E[..., None, :] + Tt @ Sd
-            U = _mv(R, D) + sr * d[..., None]
-            sr_n = sr + E * U + _mv(Tt, U)
-            st_n = st * d[..., None] + E * D + _mv(Tt, D)
-            do = float(i) < k_layer
-            R = torch.where(do[..., None, None], R_n, R)
-            Tt = torch.where(do[..., None, None], Tt_n, Tt)
-            sr = torch.where(do[..., None], sr_n, sr)
-            st = torch.where(do[..., None], st_n, st)
-            del E, m, RT, rhs, sol, Sd, D, RS, R_n, Tt_n, U, sr_n, st_n, do
-        E_fin, d = att(_DOUBLINGS)
-        T = E_fin[..., :, None] * eye + Tt
-        del Tt, E_fin
-        return R, T, sr, st, d
 
     def adding(R, T, sr, st, d, alb, mu0):
         """The block's fluxes before the beam scaling."""

@@ -26,7 +26,8 @@ the block nothing is read.
 Everything here is host-side and costs nothing when unused, but for the
 layers' timing events, which a capture records into its graph, and
 :class:`DoublingCounts`, which the DISORT solver adds to on the device
-(one reduction a wavenumber block).
+(one reduction a wavenumber block; on the card the doubling kernel adds
+the steps it runs itself).
 """
 from __future__ import annotations
 
@@ -154,11 +155,16 @@ class LinePrepCounts:
 class DoublingCounts:
     """The discrete-ordinates solver's doubling steps: ``needed``, the
     steps each (column, layer, wavenumber) element's optical depth needs
-    (its doubling count k), summed, against ``run``, the steps the
-    solver runs for every element.  Both are added on the device into an
-    int64 tensor made outside any capture, so each replay of a captured
-    step adds what its eager call added; :meth:`read` copies them to the
-    host, a synchronisation, so it is read outside a step."""
+    (its doubling count k), summed, against ``run``, the element-steps the
+    solver issues: the masked loop on the CPU runs all of its steps on
+    every element (:meth:`add`); the card's kernel runs each warp's
+    elements in lockstep to the warp's largest count, and adds those
+    element-steps itself at :meth:`run_ptr` (one atomic a warp), beside
+    :meth:`add_needed`.
+    Both are added on the device into an int64 tensor made outside any
+    capture, so each replay of a captured step adds what its eager call
+    added; :meth:`read` copies them to the host, a synchronisation, so it
+    is read outside a step."""
 
     def __init__(self, device):
         self.counts = torch.zeros(2, dtype=torch.int64, device=device)
@@ -168,6 +174,18 @@ class DoublingCounts:
         dtype) and ``steps`` run for each of its elements."""
         self.counts[0].add_(k.sum(dtype=torch.int64))
         self.counts[1].add_(steps * k.numel())
+
+    def add_needed(self, k: torch.Tensor) -> None:
+        """Add a block's doubling counts ``k`` to ``needed`` alone."""
+        self.counts[0].add_(k.sum(dtype=torch.int64))
+
+    def run_ptr(self, device) -> int:
+        """The device address of ``run`` (an int64), for a kernel on
+        ``device`` that adds the steps it runs."""
+        if self.counts.device != torch.device(device):
+            raise ValueError(f"the counts are on {self.counts.device}, the "
+                             f"kernel on {device}")
+        return self.counts[1].data_ptr()
 
     def read(self) -> dict:
         needed, run = self.counts.tolist()

@@ -15,6 +15,9 @@
   block size changes the result by no more than 1e-6 of the level's
   largest flux.
 * The solver refuses reduced-precision float32 matmuls.
+* Running each element only to its own doubling count is exact: the
+  masked steps past it change no bit of the fluxes.  On CPU tensors the
+  doubling is the plain loop; the card kernel's argument checks.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -161,6 +164,53 @@ def test_matches_jax(nstr, deltam):
         assert a.shape == b.shape == (7, 50) and np.isfinite(a).all()
         scale = np.abs(b).max(axis=1, keepdims=True)
         assert float((np.abs(a - b) / scale).max()) < JAX_TOL
+
+
+@pytest.mark.parametrize("nstr", [4, 16])
+def test_running_only_the_needed_doublings_is_exact(nstr, monkeypatch):
+    """A masked step past an element's count changes nothing: with
+    _DOUBLINGS cut to the inputs' largest count, the plain loop's fluxes
+    equal the 37-step run's bit for bit.  So the card's kernel, which runs
+    each element to its own count, computes the same mathematics."""
+    tau, omega, g, alb, sol = (torch.as_tensor(a) for a in _inputs())
+    tau = torch.clamp(tau, max=2.0)
+    kmax = int(disort_mod.sublayers(tau, omega, g, nstr)[3].max())
+    assert 10 < kmax < disort_mod._DOUBLINGS
+    args = (tau, omega, g, torch.tensor(MU0), alb, torch.tensor(TSI), sol)
+    want = disort_shortwave(*args, nstr=nstr, wchunk=16)
+    monkeypatch.setattr(disort_mod, "_DOUBLINGS", kmax)
+    got = disort_shortwave(*args, nstr=nstr, wchunk=16)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_layer_operators_take_the_plain_loop_on_the_cpu():
+    """On CPU tensors the dispatcher is the plain loop, bit for bit, and
+    launches nothing; the kernel's argument checks refuse what it does not
+    take."""
+    tau, omega, g = (torch.as_tensor(a)[None] for a in _inputs()[:3])
+    sub = disort_mod.sublayers(tau, omega, g, 8)
+    beams = disort_mod.beam_vectors(torch.tensor([MU0]), 8)
+    launches = disort_mod.layer_operators.launches
+    got = disort_mod.layer_operators(*sub, torch.tensor([MU0]), *beams)
+    want = disort_mod.layer_operators_plain(*sub, torch.tensor([MU0]),
+                                            *beams)
+    assert disort_mod.layer_operators.launches == launches
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert [t.shape for t in got] == [(1, 6, 50, 4, 4), (1, 6, 50, 4, 4),
+                                      (1, 6, 50, 4), (1, 6, 50, 4),
+                                      (1, 6, 50)]
+    named = dict(zip(("dtau", "omega", "chi", "k"), sub),
+                 mu0=torch.tensor([MU0]), beam_p=beams[0], beam_m=beams[1])
+    disort_mod._check_cuda_args(named, 1, 6, 50, 4)
+    for name, bad, match in (
+            ("k", sub[3].double(), "dtype"),
+            ("chi", sub[2][..., :-1].contiguous(), "shape"),
+            ("omega", sub[1].transpose(1, 2).contiguous().transpose(1, 2),
+             "contiguous")):
+        with pytest.raises(ValueError, match=match):
+            disort_mod._check_cuda_args(dict(named, **{name: bad}), 1, 6,
+                                        50, 4)
 
 
 def test_batched_equals_per_column_calls():

@@ -43,9 +43,10 @@ from grtcode_tpu_torch.gas_optics import bins_kernel as bk
 from grtcode_tpu_torch.gas_optics import lines, voigt_kernel as vk
 from grtcode_tpu_torch.gas_optics.hitran import synthetic_catalog
 from grtcode_tpu_torch.kernel_bench import census_bins, census_line_sample
+from grtcode_tpu_torch.solvers import disort
 from grtcode_tpu_torch.spectral import SpectralGrid
 from grtcode_tpu_torch.utils import curtis_godson as cg
-from grtcode_tpu_torch.utils import prng
+from grtcode_tpu_torch.utils import metrics, prng
 
 pytestmark = pytest.mark.gpu
 
@@ -493,6 +494,200 @@ def test_disort_on_the_card_matches_the_cpu(cuda, nstr):
         assert np.isfinite(g).all()
         scale = np.abs(w).max(axis=-1, keepdims=True)
         assert float((np.abs(g - w) / scale).max()) < DISORT_TOL
+
+
+def _doubling_inputs(B, nlayers, nw, device, seed=11):
+    """Layers whose doubling counts span 0-37: tau log-uniform over
+    1e-9-0.3, at every 8th wavenumber over 0.3-1e7 in every layer, and in
+    the first layer at 0, 1e-12, 1e-5, 2e-5, at the clamp (1e6) and
+    beyond it (1e12).  omega stays under 0.99: a thick layer that scatters
+    nearly conservatively is ill-conditioned in float32, and there the
+    masked loop on the card and on the CPU differ by up to 0.6 of the
+    layer's largest R entry, so no float32 version is a yardstick for
+    another (tests/test_torch_disort.py holds conservative scattering)."""
+    rng = np.random.default_rng(seed)
+    tau = 10.0 ** rng.uniform(-9, -0.5, (B, nlayers, nw))
+    tau[..., ::8] = 10.0 ** rng.uniform(-0.5, 7, tau[..., ::8].shape)
+    omega = rng.uniform(0, 0.99, (B, nlayers, nw))
+    g = rng.uniform(-0.2, 0.9, (B, nlayers, nw))
+    tau[:, 0, :6] = [0.0, 1e-12, 1e-5, 2e-5, 1e6, 1e12]
+    g[:, 0, 4:6] = 0.0
+    return [torch.as_tensor(a, dtype=torch.float32, device=device) for a in (
+        tau, omega, g, rng.uniform(0.05, 1.0, B), rng.uniform(0, 0.5, (B, nw)),
+        rng.uniform(1000, 1400, B), rng.uniform(0.5, 1.5, nw))]
+
+
+def _lockstep_run(k, nstr):
+    """The element-steps the doubling kernel's warps run in lockstep:
+    a warp holds 32 / h consecutive elements of ``k`` (one lane a row, h =
+    nstr / 2 rows), and runs its largest count for each."""
+    group = 32 // (nstr // 2)
+    k = k.reshape(-1).astype(np.int64)
+    return sum(int(k[s:s + group].max()) * k[s:s + group].size
+               for s in range(0, k.size, group))
+
+
+@pytest.mark.parametrize("nstr,B,nw", [(16, 1, 2048), (16, 1, 848),
+                                       (16, 32, 2048), (8, 1, 2048),
+                                       (4, 1, 848)])
+def test_doubling_kernel_matches_the_plain_version(cuda, nstr, B, nw):
+    """The doubling kernel against the plain masked loop on the card, on
+    the CIRC cell's blocks (one column, 54 layers, 2,048 points and the
+    848-point tail), chip_smoke.py's 32-column block and the other two
+    stream counts: R, T, sr, st and d within DISORT_TOL of the layer's
+    largest entry, one launch, the needed steps equal, the run steps the
+    warps' lockstep steps."""
+    tau, omega, g, mu0 = _doubling_inputs(B, 54, nw, cuda)[:4]
+    sub = disort.sublayers(tau, omega, g, nstr)
+    k = sub[3].cpu().numpy()
+    assert k.min() == 0 and k.max() == 37
+    beams = disort.beam_vectors(mu0, nstr)
+    counts = metrics.DoublingCounts(cuda)
+    plain_counts = metrics.DoublingCounts(cuda)
+    launches = disort.layer_operators.launches
+    got = disort.layer_operators(*sub, mu0, *beams, doublings=counts)
+    want = disort.layer_operators_plain(*sub, mu0, *beams,
+                                        doublings=plain_counts)
+    torch.cuda.synchronize()
+    assert disort.layer_operators.launches == launches + 1
+    for name, a, b in zip(("R", "T", "sr", "st", "d"), got, want):
+        assert a.shape == b.shape and a.device.type == "cuda", name
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        assert np.isfinite(a).all(), name
+        axes = tuple(range(2, b.ndim))
+        scale = np.abs(b).max(axis=axes, keepdims=True)
+        err = np.abs(a - b) / np.maximum(scale, 1e-30)
+        assert float(err.max()) < DISORT_TOL, (name, float(err.max()))
+    got_counts, want_counts = counts.read(), plain_counts.read()
+    assert got_counts["needed"] == want_counts["needed"] == int(k.sum())
+    assert want_counts["run"] == 37 * k.size
+    assert got_counts["run"] == _lockstep_run(k, nstr)
+
+
+def test_disort_on_the_card_runs_the_kernel_not_the_loop(cuda, monkeypatch):
+    """disort_shortwave on the CIRC cell's blocks (one column, 54 layers,
+    a 2,048-point block and the 848-point tail): one kernel launch a
+    block and no masked loop, fluxes within DISORT_TOL of the level's
+    largest flux of the plain loop's on the card, the same needed steps;
+    a stream count the kernel is not built for raises, naming those it
+    is."""
+    args = _doubling_inputs(1, 54, 2048 + 848, cuda)
+    plain = disort.layer_operators_plain
+
+    def no_loop(dtau, *a, **kw):
+        assert dtau.device.type == "cpu", "the masked loop ran on the card"
+        return plain(dtau, *a, **kw)
+    monkeypatch.setattr(disort, "layer_operators_plain", no_loop)
+    counts = metrics.DoublingCounts(cuda)
+    launches = disort.layer_operators.launches
+    got = disort.disort_shortwave(*args, doublings=counts)
+    torch.cuda.synchronize()
+    assert disort.layer_operators.launches == launches + 2
+    with pytest.raises(ValueError, match="built for nstr 4, 8, 16"):
+        disort.disort_shortwave(*args, nstr=6)
+    monkeypatch.setattr(disort, "layer_operators", plain)
+    plain_counts = metrics.DoublingCounts(cuda)
+    want = disort.disort_shortwave(*args, doublings=plain_counts)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape == (1, 55, 2896)
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        assert np.isfinite(a).all()
+        scale = np.abs(b).max(axis=-1, keepdims=True)
+        assert float((np.abs(a - b) / scale).max()) < DISORT_TOL
+    assert counts.read()["needed"] == plain_counts.read()["needed"]
+
+
+def _cloud_layers(nstr, seed=17, nlayers=24, nw=256):
+    """A column with a thick cloud that scatters almost without
+    absorption, as the cs / af tiers' liquid and ice layers: 6 layers of
+    tau log-uniform over 10-1e3, omega in [0.99, 1), g in [0.75, 0.9]
+    (k 20-27), under and over clear layers (tau 1e-4-0.1, g under 0.3)."""
+    rng = np.random.default_rng(seed + nstr)
+    tau = 10.0 ** rng.uniform(-4, -1, (nlayers, nw))
+    omega = rng.uniform(0.0, 1.0, (nlayers, nw))
+    g = rng.uniform(0.0, 0.3, (nlayers, nw))
+    cloud = slice(10, 16)
+    tau[cloud] = 10.0 ** rng.uniform(1, 3, tau[cloud].shape)
+    omega[cloud] = rng.uniform(0.99, 1.0, tau[cloud].shape)
+    g[cloud] = rng.uniform(0.75, 0.9, tau[cloud].shape)
+    return tau, omega, g, rng.uniform(0.0, 0.3, nw), rng.uniform(0.5, 1.5, nw)
+
+
+def _gap_by_layer(got, want):
+    """The largest |got - want| over the elements of ``want``'s
+    (column, layer), as a share of that layer's largest |want| entry."""
+    got, want = got.cpu().double().numpy(), want.cpu().double().numpy()
+    assert np.isfinite(got).all()
+    axes = tuple(range(2, want.ndim))
+    scale = np.abs(want).max(axis=axes, keepdims=True)
+    return float((np.abs(got - want) / np.maximum(scale, 1e-300)).max())
+
+
+@pytest.mark.parametrize("nstr", [4, 16])
+def test_doubling_kernel_on_clouds_against_the_float64_reference(
+        cuda, monkeypatch, nstr):
+    """Thick near-conservative cloud layers, where float32 doubling is
+    ill-conditioned and no float32 version is a yardstick for another.
+    (a) Each layer's R, T, sr, st and d by the kernel, by the masked loop
+    on the card and by the masked loop on the CPU, against the masked
+    loop in float64 on the same inputs (the same method's arithmetic):
+    the kernel's gap, of each layer's largest entry, is at most twice the
+    larger of the two float32 loops' (they round in other orders, with
+    other exp, and differ from each other by up to 2.7x here; a kernel
+    that pivots or accumulates wrongly reads orders of magnitude more).
+    (b) The fluxes of the three
+    against the benchmark's float64 discrete-ordinates reference
+    (rtbench/reference/sw_disort.py), of each wavenumber's largest flux:
+    the doubling's own method error is common to all three (a float64
+    copy of the loop reads the same gap), and the kernel's gap exceeds
+    the larger of the loops' by no more than DISORT_TOL."""
+    from rtbench.reference import sw_disort
+    mu0, tsi = 0.6707, 1361.0
+    layers = _cloud_layers(nstr)
+    f32 = [torch.as_tensor(a, dtype=torch.float32) for a in layers]
+    mu0_t = torch.tensor([mu0])
+    sub = disort.sublayers(*(t[None] for t in f32[:3]), nstr)
+    args = (*sub, mu0_t, *disort.beam_vectors(mu0_t, nstr))
+    witness = disort.layer_operators_plain(*(a.double() for a in args))
+    operators = {
+        "kernel": disort.layer_operators(*(a.to(cuda) for a in args)),
+        "card_loop": disort.layer_operators_plain(
+            *(a.to(cuda) for a in args)),
+        "cpu_loop": disort.layer_operators_plain(*args)}
+    gaps = {name: {way: _gap_by_layer(ops[i], witness[i])
+                   for way, ops in operators.items()}
+            for i, name in enumerate(("R", "T", "sr", "st", "d"))}
+    for gap in gaps.values():
+        assert gap["kernel"] <= 2 * max(gap["card_loop"], gap["cpu_loop"]), \
+            gaps
+
+    f64 = [torch.as_tensor(a, dtype=torch.float64) for a in layers]
+    want = sw_disort.fluxes(*f64[:3], mu0, f64[3],
+                            torch.tensor(tsi, dtype=torch.float64), f64[4],
+                            config={"disort_streams": nstr})
+
+    def flux_gaps(device):
+        a = [t.to(device) for t in f32]
+        got = disort.disort_shortwave(
+            *a[:3], torch.tensor(mu0, device=device), a[3],
+            torch.tensor(tsi, device=device), a[4], nstr=nstr)
+        out = []
+        for g, w in zip(got, want):
+            g, w = g.cpu().double().numpy(), w.double().numpy()
+            assert np.isfinite(g).all()
+            out.append(float(np.max(np.abs(g - w) / np.abs(w).max(
+                axis=0, keepdims=True))))
+        return out
+
+    launches = disort.layer_operators.launches
+    kernel = flux_gaps(cuda)
+    assert disort.layer_operators.launches == launches + 1
+    cpu_loop = flux_gaps("cpu")
+    monkeypatch.setattr(disort, "layer_operators",
+                        disort.layer_operators_plain)
+    card_loop = flux_gaps(cuda)
+    for k, a, b in zip(kernel, card_loop, cpu_loop):
+        assert k <= max(a, b) + DISORT_TOL, (kernel, card_loop, cpu_loop)
 
 
 def test_allsky_disort_step_on_the_card_matches_the_cpu(cuda):
@@ -981,8 +1176,9 @@ def test_launch_counters_advance_on_replay(cuda):
         driver.run(atm)
         assert vk.accumulate_voigt.launches == 11 * (i + 1)
     (entry,) = driver._step_cache.entries.values()
-    assert entry.launches == {vk.accumulate_voigt: 11,   # K1, K2 captured
-                              bk.accumulate_bins_kernel: 0}
+    assert entry.launches == {vk.accumulate_voigt: 11,   # K1, K2, K3
+                              bk.accumulate_bins_kernel: 0,  # captured
+                              disort.layer_operators: 0}
     lw, sw, solar, batch, _, _ = examples.rfmip_like(
         smoke=True, device=cuda, lw_method="wavenumber_sweep", lw_res=0.01)
     streamed = RadiationDriver(lw, sw, solar)

@@ -275,6 +275,38 @@ def test_disort_counts_the_doublings_its_layers_need():
     assert counts.read() == {k: 2 * v for k, v in got.items()}
 
 
+def test_lockstep_doublings_count_each_group_s_largest_count():
+    """On the card the doubling kernel adds the element-steps its warps
+    run in lockstep (each warp's largest count a member) to ``run``
+    itself, at run_ptr; the wrapper adds ``needed`` alone.  Here: the
+    address is run's and nothing else's, a counter on another device is
+    refused, and the plain loop on the CPU still runs 37 steps an
+    element (tests/test_torch_gpu.py holds the kernel's count to each
+    warp's largest count)."""
+    import ctypes
+    from grtcode_tpu_torch.solvers import disort
+
+    counts = metrics.DoublingCounts("cpu")
+    k = torch.tensor([[0.0, 3, 1, 2, 5, 5, 0, 0, 7, 1]])
+    counts.add_needed(k)
+    assert counts.read() == {"needed": 24, "run": 0}
+    ctypes.c_int64.from_address(counts.run_ptr("cpu")).value += 3 * 4 + 7
+    assert counts.read() == {"needed": 24, "run": 19}
+    with pytest.raises(ValueError, match="the kernel on cuda"):
+        counts.run_ptr(torch.device("cuda", 0))
+
+    rng = np.random.default_rng(3)
+    tau, omega, g = (torch.as_tensor(a, dtype=torch.float32) for a in (
+        10.0 ** rng.uniform(-7, 3, (2, 3, 9)), rng.uniform(0, 1, (2, 3, 9)),
+        rng.uniform(0, 0.9, (2, 3, 9))))
+    mu0 = torch.tensor([0.4, 0.9])
+    sub = disort.sublayers(tau, omega, g, 4)
+    plain = metrics.DoublingCounts("cpu")
+    disort.layer_operators(*sub, mu0, *disort.beam_vectors(mu0, 4),
+                           doublings=plain)
+    assert plain.read() == {"needed": int(sub[3].sum()), "run": 37 * 54}
+
+
 def test_driver_steps_read_the_disort_counts(model, monkeypatch):
     """An eager DISORT step of a lit column on the CPU: its doubling
     counts against those worked out from the optical depths it gave the
