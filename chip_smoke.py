@@ -14,10 +14,9 @@ LW 0.1, the CIRC app with both SW solvers, the line_sample step over
 segments, the metrics, debug and C ABI modules, the library path
 built by hand from the public imports, the RFMIP-IRF and cloudy ERA5
 apps with their netCDF files read and written by the port's own HDF5 IO,
-the headline benchmark (grtcode_tpu_torch.bench) with the float64
-solver check, the scatter method (GasOptics(method="scatter"), the
-independent line_sample sum K1 is held to), and the captured steps, in
-seventeen phases (one line each).  Every driver and bench step on the
+the float64 solver check, the scatter method (GasOptics(method="scatter"),
+the independent line_sample sum K1 is held to), and the captured steps, in
+seventeen phases (one line each).  Every driver step on the
 card runs eagerly at the first call of its key (its warm-up), is captured
 as a CUDA graph at the second and is replayed after that
 (grtcode_tpu_torch/utils/graphs.py); the profiled steps, which read the
@@ -144,16 +143,8 @@ debug.disable_jit:
      read back, written fluxes finite, variables only defined at the fill
      value with no storage; (d) the phase's wall time on a line of its
      own;
- 15. the headline benchmark, grtcode_tpu_torch.bench.main in-process:
-     (a) at the defaults (B = 32, LW 0.1, 11 K1 launches a step) and at
-     --method wavenumber_sweep --lw-res 0.01 (10 LW blocks, 70 K2 + 4 K1
-     launches a step), both with --profile, each run's JSON line, its
-     launches from the dispatchers' counts and no plain launch; (b)
-     ``python -m grtcode_tpu_torch.bench --smoke`` as a subprocess; (c)
-     x64_validate on the card (20 float64 comparisons within 3e-8 of the
-     f64 reference-C goldens); (d) the bench step on the card against
-     the CPU at smoke size, line_sample and the streamed bin method, at
-     the driver golden's 1e-4;
+ 15. the float64 check alone: x64_validate on the card (20 float64
+     comparisons within 3e-8 of the f64 reference-C goldens);
  16. the scatter method (gas_optics/optical_depth.py): (a) each band of
      the full-width model (examples.rfmip_like: LW 366,000 lines on
      32,491 points at 0.1, SW 64,000 on 50,000 at 1.0) on SCATTER_COLUMNS
@@ -169,9 +160,9 @@ debug.disable_jit:
      molecule's float64 scatter sum on the card equals the CPU's from the
      same inputs (rtol 2e-6 / atol 1e-12); (c) a RadiationDriver step
      with both bands on scatter at smoke size, card against CPU at 1e-4;
- 17. the captured steps, read inside phases 5, 8, 9, 10 and 15 for each
+ 17. the captured steps, read inside phases 5, 8, 9 and 10 for each
      of their paths (the driver at 0.1, streamed at 0.01, all-sky, CIRC
-     two-stream and 16-stream DISORT, both bench configurations): graph,
+     two-stream and 16-stream DISORT): graph,
      from empty caches, the eager warm-up step and the step that captures,
      then graph, eager (debug.disable_jit), graph in turns, each timed;
      the replays bit-identical to the eager step (DISORT may instead hold
@@ -545,14 +536,13 @@ def _turns_line(name, r):
 
 
 def phase_graphs(info, card):
-    """Phase 17: the captured steps.  Each path of phases 5, 8, 9, 10 and
-    15 was read by graph_turns in its own phase (graph and eager in turns,
+    """Phase 17: the captured steps.  Each path of phases 5, 8, 9 and 10
+    was read by graph_turns in its own phase (graph and eager in turns,
     bit-identity, launches, host syncs, memory reserved), and phase 14's
     RFMIP-IRF step there; this phase checks that every path was read and
     prints them on one line."""
     want = ("driver 0.1", "driver streamed 0.01", "all-sky",
-            "CIRC two-stream", "CIRC DISORT", "bench defaults",
-            "bench 0.01")
+            "CIRC two-stream", "CIRC DISORT")
     got = info.get("phase17", {})
     check(sorted(got) == sorted(want), f"phase 17: paths read "
           f"{tuple(got)}, expected {want}")
@@ -584,18 +574,14 @@ def phase_card(info):
 
 
 def phase_build(info):
-    """The three kernels (one nvcc each), the .par scanner and the C ABI
-    shim (one g++ each), started together."""
+    """Every kernel of cuda_build.KERNELS (one nvcc each), the .par scanner
+    and the C ABI shim (one g++ each), started together."""
     from concurrent.futures import ThreadPoolExecutor
     from grtcode_tpu_torch import bindings, native
-    from grtcode_tpu_torch.gas_optics import bins_kernel as bk
-    from grtcode_tpu_torch.gas_optics import voigt_kernel as vk
-    from grtcode_tpu_torch.solvers import disort
+    from grtcode_tpu_torch.cuda_build import KERNELS
 
-    builds = {"voigt_line_sample": vk.build, "voigt_bins": bk.build,
-              "disort_doubling": disort.build,
-              "hitran_parser": native.available,
-              "grtcode_tpu_c": bindings.build}
+    builds = {name: k.load for name, k in KERNELS.items()}
+    builds.update(hitran_parser=native.available, grtcode_tpu_c=bindings.build)
 
     def timed(build):
         t0 = time.perf_counter()
@@ -611,16 +597,15 @@ def phase_build(info):
     secs = {name: s for name, (s, _) in done.items()}
     info["build_s"] = dict(secs, total=total)
     reports = []
-    for name, mod in (("voigt_line_sample", vk), ("voigt_bins", bk),
-                      ("disort_doubling", disort)):
-        info[f"build_log_{name}"] = mod.build_log
-        ptxas = " | ".join(ln.strip() for ln in mod.build_log.splitlines()
+    for name, k in KERNELS.items():
+        info[f"build_log_{name}"] = k.build_log
+        ptxas = " | ".join(ln.strip() for ln in k.build_log.splitlines()
                            if "registers" in ln or "spill" in ln)
         reports.append(f"{name} {secs[name]:.2f} s ({ptxas or 'cached'})")
     reports += [f"{name} {secs[name]:.2f} s (g++)"
                 for name in ("hitran_parser", "grtcode_tpu_c")]
-    print(f"phase 2 build: {total:.2f} s for all five: " + "; ".join(reports),
-          flush=True)
+    print(f"phase 2 build: {total:.2f} s for all {len(builds)}: "
+          + "; ".join(reports), flush=True)
 
 
 def phase_kernel_vs_plain(info, dev):
@@ -2782,111 +2767,13 @@ def phase_apps_io(info, dev, card, d):
     return launches + launches5, k1["max_abs_err"]
 
 
-# Phase 15: the bench's configurations (argv of grtcode_tpu_torch.bench)
-# and the smoke-size steps held against the CPU (build keywords, LW blocks,
-# columns): the bin-method step runs on 2 columns, where the CPU's plain
-# bin version takes ~10-40 s.
-BENCH_RUNS = {"line_sample, LW 0.1": ["--profile"],
-              "wavenumber_sweep, LW 0.01": ["--method", "wavenumber_sweep",
-                                            "--lw-res", "0.01", "--profile"]}
-BENCH_VS_CPU = {"line_sample": ({}, 1, None),
-                "wavenumber_sweep 0.01": (dict(lw_method="wavenumber_sweep",
-                                               lw_res=0.01), 2, 2)}
-
-
-def phase_bench(info, dev, card):
-    """Phase 15: the port's headline benchmark, grtcode_tpu_torch.bench,
-    in-process on the card at the defaults (B = 32, LW 0.1) and at
-    --method wavenumber_sweep --lw-res 0.01 (10 LW blocks), both with
-    --profile: each JSON line printed by main, the K1 / K2 launches of
-    each run from the dispatchers' counts (one untimed, 10 timed and 2
-    profiled steps, each of the launches kernel_work counts), no plain
-    launch, every device key present.  Then the CLI as a subprocess
-    (--smoke), the float64 solver check (x64_validate) on the card, and
-    the bench's step on the card against the same step on the CPU at
-    smoke size (TOL_GOLDEN, the driver golden's rule).  Returns the
-    phase's launches by kernel."""
+def phase_x64(info, dev, card):
+    """Phase 15: the float64 solver check (x64_validate) on the card."""
     import contextlib
     import io
-    import subprocess
-    import torch
-    from grtcode_tpu_torch import bench, x64_validate
-    from grtcode_tpu_torch.gas_optics import bins as bm
-    from grtcode_tpu_torch.gas_optics import bins_kernel as bk
-    from grtcode_tpu_torch.gas_optics import voigt_kernel as vk
+    from grtcode_tpu_torch import x64_validate
 
     t_phase = time.perf_counter()
-    held = torch.cuda.memory_allocated(dev)
-    steps = 2 + 10 + 2          # warm-up and capture, timed, profiled
-    counts = (vk.accumulate_voigt, bk.accumulate_bins_kernel,
-              vk.voigt_line_sample_reference, bm.accumulate_bins)
-    # The main path, with every launch count starting at 0.
-    for fn in counts:
-        fn.launches = 0
-    runs = {}
-    for name, argv in BENCH_RUNS.items():
-        before = (vk.accumulate_voigt.launches,
-                  bk.accumulate_bins_kernel.launches)
-        t0 = time.perf_counter()
-        res = bench.main(argv, device=dev)
-        wall = time.perf_counter() - t0
-        got = (vk.accumulate_voigt.launches - before[0],
-               bk.accumulate_bins_kernel.launches - before[1])
-        per = res["kernel_launches_per_step"]
-        want = (per["voigt_line_sample"] * steps, per["voigt_bins"] * steps)
-        check(got == want, f"bench {name}: {got} K1 / K2 launches, expected "
-              f"{want}")
-        for key in ("value", "ms_per_step", "compile_first_s",
-                    "peak_hbm_gib", "est_tflops", "est_share_of_f32_peak",
-                    "kernel_bound_ms_per_step", "profiled_kernel_ms_per_step",
-                    "profiled_device_ms_per_step", "profiled_tflops",
-                    "profiled_share_of_f32_peak"):
-            check(key in res and res[key] > 0, f"bench {name}: {key} "
-                  f"missing or not positive ({res.get(key)})")
-        check(0.0 <= res.get("profiled_idle_share", -1.0) < 1.0,
-              f"bench {name}: profiled_idle_share "
-              f"{res.get('profiled_idle_share')}")
-        check(res["metric"] == "gridpoints_per_s_per_chip",
-              f"bench {name}: metric {res['metric']}")
-        runs[name] = dict(res, wall_s=wall, launches=got)
-        torch.cuda.empty_cache()
-    launches = {"voigt_line_sample": vk.accumulate_voigt.launches,
-                "voigt_bins": bk.accumulate_bins_kernel.launches}
-    plain = (vk.voigt_line_sample_reference.launches,
-             bm.accumulate_bins.launches)
-    check(plain == (0, 0), f"the plain versions ran {plain} times in the "
-          "bench runs")
-
-    # Phase 17's reading of both bench steps: make_step as main builds it.
-    for name, argv in zip(("bench defaults", "bench 0.01"),
-                          BENCH_RUNS.values()):
-        opts = bench.parser().parse_args(argv)
-        lw, sw, solar, batch, _, _ = bench.build(
-            lw_method=opts.method, lw_res=opts.lw_res, device=dev)
-        step_fn = bench.make_step(
-            lw, sw, solar, lw_blocks=opts.lw_blocks
-            or bench.default_lw_blocks(lw.grid.n))
-        args, chain = bench.step_args(batch), torch.zeros((), device=dev)
-        graph_turns(info, name, lambda: step_fn(*args, chain),
-                    [step_fn.cache])
-        del lw, sw, solar, step_fn
-        torch.cuda.empty_cache()
-
-    # The CLI itself on the card.
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "grtcode_tpu_torch.bench",
-                           "--smoke"], capture_output=True, text=True,
-                          timeout=600)
-    cli_s = time.perf_counter() - t0
-    check(proc.returncode == 0, f"bench --smoke exited {proc.returncode}: "
-          f"{proc.stderr.strip()[-2000:]}")
-    cli = json.loads(proc.stdout.strip().splitlines()[-1])
-    check(cli["metric"] == "gridpoints_per_s_per_chip" and cli["value"] > 0
-          and cli["device"] == torch.cuda.get_device_name(dev),
-          f"bench --smoke: {cli}")
-    print(json.dumps(cli), flush=True)
-
-    # The float64 solver check on the card.
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         rc = x64_validate.main(["--device", str(dev)])
@@ -2896,51 +2783,11 @@ def phase_bench(info, dev, card):
     rels = [float(ln.split("max rel ")[1].split()[0]) for ln in lines[:-1]]
     check(len(rels) == 20 and max(rels) <= 10 * x64_validate.RTOL,
           f"x64_validate: {len(rels)} comparisons, worst {max(rels):.2e}")
-
-    # The step on the card against the CPU at smoke size.
-    vs_cpu = {}
-    for name, (kw, blocks, cols) in BENCH_VS_CPU.items():
-        outs = []
-        for d in (dev, torch.device("cpu")):
-            lw, sw, solar, batch, _, _ = bench.build(
-                smoke=True, batch_size=cols, device=d, **kw)
-            res = bench.make_step(lw, sw, solar, lw_blocks=blocks)(
-                *bench.step_args(batch), torch.zeros((), device=d))
-            outs.append([r.cpu().numpy() for r in res])
-        errs = {var: worst_rel(g, w) for var, g, w in zip(
-            ("rlu", "rld", "rsu", "rsd", "chain"), *outs)}
-        check(all(np.isfinite(g).all() for g in outs[0]),
-              f"bench step {name} on the card: not finite")
-        check(max(errs.values()) <= TOL_GOLDEN, f"bench step {name}: card "
-              f"vs CPU {errs} > {TOL_GOLDEN}")
-        vs_cpu[name] = errs
     phase_s = time.perf_counter() - t_phase
-
-    info["phase15"] = dict(card=card, runs=runs, launches=launches, cli=cli,
-                           cli_s=cli_s, x64=lines, vs_cpu=vs_cpu,
-                           held_bytes=held, phase_s=phase_s)
-    parts = []
-    for name, r in runs.items():
-        parts.append(
-            f"{name}: {r['value']:.4e} points/s, {r['ms_per_step']:.1f} "
-            f"ms/step, first step {r['compile_first_s']:.2f} s, peak "
-            f"{r['peak_hbm_gib']:.2f} GiB, {r['launches'][0]} K1 + "
-            f"{r['launches'][1]} K2 launches, est {r['est_tflops']:.3f} "
-            f"TFLOP/s ({r['est_share_of_f32_peak']:.2%} of f32 peak), "
-            f"kernel bound {r['kernel_bound_ms_per_step']:.2f} ms/step, "
-            f"profiled kernels {r['profiled_kernel_ms_per_step']:.1f} of "
-            f"{r['profiled_device_ms_per_step']:.1f} ms busy/step "
-            f"({r['profiled_tflops']:.3f} TFLOP/s, idle "
-            f"{r['profiled_idle_share']:.1%}), run {r['wall_s']:.1f} s")
-    print(f"phase 15 bench ({card}): " + "; ".join(parts)
-          + f"; no plain launch; CLI --smoke {cli['value']:.4e} points/s "
-          f"in {cli_s:.1f} s; x64_validate on the card 20 comparisons, "
-          f"worst {max(rels):.2e} <= {10 * x64_validate.RTOL:.0e}; card vs "
-          f"CPU at smoke size, worst rel "
-          + ", ".join(f"{n} {max(e.values()):.2e}" for n, e in vs_cpu.items())
-          + f" <= {TOL_GOLDEN}; {held / 2 ** 30:.2f} GiB held before the "
-          f"phase; phase {phase_s:.1f} s", flush=True)
-    return launches
+    info["phase15"] = dict(card=card, x64=lines, phase_s=phase_s)
+    print(f"phase 15 x64_validate ({card}): 20 comparisons, worst "
+          f"{max(rels):.2e} <= {10 * x64_validate.RTOL:.0e}; phase "
+          f"{phase_s:.1f} s", flush=True)
 
 
 def phase_scatter(info, dev, card, columns=SCATTER_COLUMNS):
@@ -2967,7 +2814,7 @@ def phase_scatter(info, dev, card, columns=SCATTER_COLUMNS):
     the band taus' worst share against the f32 scatter)."""
     import dataclasses
     import torch
-    from grtcode_tpu_torch import bench, examples
+    from grtcode_tpu_torch import examples
     from grtcode_tpu_torch.framework.driver import RadiationDriver
     from grtcode_tpu_torch.gas_optics import optical_depth as od
     from grtcode_tpu_torch.gas_optics import voigt_kernel as vk
@@ -2978,7 +2825,13 @@ def phase_scatter(info, dev, card, columns=SCATTER_COLUMNS):
     lw_gas, sw_gas, solar, batch, B, nlayers = examples.rfmip_like(
         device=dev)
     bands = {"LW": lw_gas, "SW": sw_gas}
-    cols = bench.slice_batch(batch, 0, columns)
+
+    def first(n):
+        """The batch's first ``n`` columns."""
+        return {k: ({m: a[:n] for m, a in v.items()} if isinstance(v, dict)
+                    else v[:n]) for k, v in batch.items()}
+
+    cols = first(columns)
     rows = columns * nlayers
 
     def gas_args(gas, b, d):
@@ -3070,7 +2923,7 @@ def phase_scatter(info, dev, card, columns=SCATTER_COLUMNS):
     torch.cuda.empty_cache()
 
     # (b) Beyond the line_sample tables' limits.
-    one = bench.slice_batch(batch, 0, 1)
+    one = first(1)
     hot_col = dict(one, p_lev=one["p_lev"] * HOT_P,
                    t_lev=one["t_lev"] + HOT_DT)
     hot = {}
@@ -3221,7 +3074,7 @@ def main():
         torch.cuda.empty_cache()
         launches14, err14 = phase_apps_io(info, dev, info["card"], app_dir)
     torch.cuda.empty_cache()
-    launches15 = phase_bench(info, dev, info["card"])
+    phase_x64(info, dev, info["card"])
     torch.cuda.empty_cache()
     launches16, err16, share16, band16 = phase_scatter(info, dev,
                                                        info["card"])
@@ -3236,12 +3089,12 @@ def main():
     # K1 runs on every path (all 11 molecules at 0.1, the 4 SW molecules
     # in each block of the streamed one, 18 per all-sky step, 14 per CIRC
     # run, 11 per rank on a mesh, the segments', phase 12's and phase 13's
-    # steps, phase 14's RFMIP-IRF and ERA5 apps, phase 15's bench runs,
-    # phase 16's bands beside scatter); its launches are the ten counts.
+    # steps, phase 14's RFMIP-IRF and ERA5 apps, phase 16's bands beside
+    # scatter); its launches are the nine counts.
     # Its scatter_* keys (phase 16): its worst against the float64 scatter
     # sum by molecule (error, share of the bar) and, the band's tau, against
     # the f32 scatter GasOptics.  K2 runs on phase 8's streamed
-    # steps and phase 15's bin-method bench.
+    # steps.
     # No PyTorch call computes a Voigt sum over a line list: library_ms is
     # null for both.  K3 runs in phase 10 only (the CIRC DISORT steps, their
     # captured replays and profile, the analytic cases, card against CPU,
@@ -3255,7 +3108,7 @@ def main():
          "replaces": REPLACES,
          "launches": k1_launches + launches8["voigt_line_sample"]
          + launches9 + launches10 + launches11 + launches12 + launches13
-         + launches14 + launches15["voigt_line_sample"] + launches16,
+         + launches14 + launches16,
          "max_abs_err": max(err3, err5, err10, err14), "ms": o2["ms"],
          "plain_ms": o2["plain_ms_mean"], "bound_ms": o2["bound_ms"],
          "bound_by": o2["bound_by"], "library_ms": None,
@@ -3263,7 +3116,7 @@ def main():
          "scatter_f32_band_share": band16},
         {"name": "voigt_bins", "route": "cuda", "source": SOURCE_K2,
          "replaces": REPLACES_K2,
-         "launches": launches8["voigt_bins"] + launches15["voigt_bins"],
+         "launches": launches8["voigt_bins"],
          "max_abs_err": max(err6, o2_bins["max_abs_err"]),
          "ms": o2_bins["ms"], "plain_ms": o2_bins["plain_ms_mean"],
          "bound_ms": o2_bins["bound_ms"], "bound_by": o2_bins["bound_by"],

@@ -5,9 +5,8 @@ The kernel, ``csrc/voigt_bins.cu``, replaces the Pallas TPU kernel
 ``bins_pallas.py::_bin_kernel``.  For one molecule and a window of bins it
 adds the local lines' exact Voigt on each bin's fine points and the remote
 lines' Voigt at each bin's NIP = 3 interpolation points, both in place.
-It is compiled with ``nvcc`` for ``sm_90a`` at first use (see
-:mod:`grtcode_tpu_torch.cuda_build`) and called through a plain C entry
-point with ``ctypes``.
+It is built, loaded and launched through its entry in
+:data:`grtcode_tpu_torch.cuda_build.KERNELS`.
 
 What bounds it on the card is f32 arithmetic and IEEE division, as for the
 line_sample kernel; the design (coarse blocks with one (row, bin) per
@@ -22,38 +21,17 @@ pipeline and pairwise-rational path; this kernel decides region 0 per
 
 :func:`accumulate_bins_kernel` dispatches on the device of its tensors:
 CPU tensors take the plain version :func:`bins.accumulate_bins`; CUDA
-tensors launch the kernel or raise.  It never tries the kernel and falls
-back.  Each function counts its own launches in ``.launches``.
+tensors launch the kernel or raise (:func:`..cuda_build.on_card`).  Each
+function counts its own launches in ``.launches``.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from ..cuda_build import build_library
-from ..utils import debug
+from ..cuda_build import KERNELS, check_tensors, on_card
 from ..utils.graphs import count_launches
 from .bins import NIP, BinRanges, SpectralBins, accumulate_bins
 from .lines import PreparedLines
-
-_lib = None
-build_log = ""   # nvcc / ptxas output of the last build (registers, smem)
-
-
-def build():
-    """Compile the kernel (once per source hash) and load it."""
-    global _lib, build_log
-    if _lib is not None:
-        return _lib
-    lib, build_log = build_library("voigt_bins")
-    fn = lib.voigt_bins
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int64] * 2
-                   + [ctypes.c_int] * 4 + [ctypes.c_int64, ctypes.c_float,
-                                           ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    _lib = lib
-    return lib
 
 
 def device_tables(ranges: BinRanges, bins: SpectralBins, device):
@@ -73,25 +51,12 @@ def device_tables(ranges: BinRanges, bins: SpectralBins, device):
 
 def _check_cuda_args(prep: PreparedLines, ns, tau0, bins_tau0, nbins: int,
                      ppb: int, start_bin: int, reach: int):
-    device = tau0.device
     rows, L = prep.strength.shape
-    named = dict(center_idx=prep.center_idx, center_frac=prep.center_frac,
-                 strength=prep.strength, lorentz=prep.lorentz,
-                 doppler=prep.doppler, ns=ns, tau0=tau0, bins_tau0=bins_tau0)
-    shapes = {"ns": (rows,), "tau0": (rows, nbins * ppb),
-              "bins_tau0": (rows, nbins, NIP)}
-    for name, t in named.items():
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, tau0 on {device}")
-        want = torch.int32 if name == "center_idx" else torch.float32
-        if t.dtype != want:
-            raise ValueError(f"{name} has dtype {t.dtype}, expected {want}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        shape = shapes.get(name, (rows, L))
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                             f"expected {shape}")
+    f32 = torch.float32
+    check_tensors(prep.strength.device, dict(
+        prep.kernel_layout(), ns=(ns, (rows,), f32),
+        tau0=(tau0, (rows, nbins * ppb), f32),
+        bins_tau0=(bins_tau0, (rows, nbins, NIP), f32)))
     if start_bin < 0 or nbins < 0:
         raise ValueError(f"bin window start {start_bin}, size {nbins}")
     if reach > L:
@@ -124,26 +89,17 @@ def accumulate_bins_kernel(prep: PreparedLines, ns, ranges: BinRanges,
     if bins_tau0 is None:
         bins_tau0 = torch.zeros((rows, nbins, NIP), dtype=torch.float32,
                                 device=device)
-    if device.type == "cpu":
+    if not on_card(device, "accumulate_bins_kernel"):
         return accumulate_bins(prep, ns, ranges, bins, start_bin=start_bin,
                                nbins=nbins, tau0=tau0, bins_tau0=bins_tau0)
-    if device.type != "cuda":
-        raise ValueError(f"accumulate_bins_kernel: unsupported device "
-                         f"{device}")
     bounds, w_rel, reach = device_tables(ranges, bins, device)
     _check_cuda_args(prep, ns, tau0, bins_tau0, nbins, bins.ppb, start_bin,
                      reach)
-    lib = build()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.voigt_bins(
+    return KERNELS["voigt_bins"].launch(
+        accumulate_bins_kernel, device, (tau0, bins_tau0),
         prep.center_idx.data_ptr(), prep.center_frac.data_ptr(),
         prep.strength.data_ptr(), prep.lorentz.data_ptr(),
         prep.doppler.data_ptr(), ns.data_ptr(), bounds.data_ptr(),
         w_rel.data_ptr(), tau0.data_ptr(), bins_tau0.data_ptr(), rows,
         prep.strength.shape[1], start_bin, nbins, bins.n, bins.ppb,
-        bins.num_wpoints, bins.wres, stream)
-    if err != 0:
-        raise RuntimeError(f"voigt_bins launch failed: CUDA error {err}")
-    accumulate_bins_kernel.launches += 1
-    debug.check_kernel_output("voigt_bins", (tau0, bins_tau0))
-    return tau0, bins_tau0
+        bins.num_wpoints, bins.wres)

@@ -209,7 +209,7 @@ class GasOptics:
         """Raise ValueError for layers beyond the line_sample tables'
         limits (a no-op for the other methods).  It reads the layers'
         largest temperature and pressure on the host, so a captured step
-        cannot hold it: the driver and the bench run it on the step's
+        cannot hold it: the driver runs it on the step's
         inputs before capture or replay."""
         if self.method not in _K1_METHODS:
             return

@@ -169,6 +169,14 @@ class PreparedLines:
     lorentz: torch.Tensor      # (rows, L) f32 HWHM [cm-1]
     doppler: torch.Tensor      # (rows, L) f32 HWHM*sqrt(ln2)-convention
 
+    def kernel_layout(self) -> dict:
+        """``name: (tensor, shape, dtype)`` of each field as the line
+        kernels take them (:func:`..cuda_build.check_tensors`)."""
+        return {f.name: (getattr(self, f.name), self.strength.shape,
+                         torch.int32 if f.name == "center_idx"
+                         else torch.float32)
+                for f in dataclasses.fields(self)}
+
 
 def prepare(lines: GridLines, grid: SpectralGrid, pavg, tavg, psavg,
             tips=None, window: tuple[int, int] | None = None

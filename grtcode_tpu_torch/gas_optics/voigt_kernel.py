@@ -3,11 +3,8 @@ version, and the dispatcher (counterpart of
 grtcode_tpu/gas_optics/pallas_kernels.py).
 
 The kernel, ``csrc/voigt_line_sample.cu``, replaces the Pallas TPU kernel
-``pallas_kernels.py::_voigt_kernel``.  It is compiled with ``nvcc`` for
-``sm_90a`` at first use into ``build/grtcode_tpu_torch/`` (keyed on a
-hash of the flags, the source and the shared ``csrc/humlicek.cuh``; see
-:mod:`grtcode_tpu_torch.cuda_build`) and called through a plain C entry
-point with ``ctypes``.
+``pallas_kernels.py::_voigt_kernel``.  It is built, loaded and launched
+through its entry in :data:`grtcode_tpu_torch.cuda_build.KERNELS`.
 
 What bounds it on the card is f32 arithmetic and the IEEE division of
 every term: each (row, line) pair's ~20 input bytes are reused across up
@@ -24,26 +21,21 @@ branches into the five-region Humlicek for one lane.
 
 :func:`accumulate_voigt` dispatches on the device of its tensors: CPU
 tensors take :func:`voigt_line_sample_reference`; CUDA tensors launch the
-kernel or raise.  It never tries the kernel and falls back.  Each function
-counts its own launches in ``.launches``.
+kernel or raise (:func:`..cuda_build.on_card`).  Each function counts its
+own launches in ``.launches``.
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 
 import numpy as np
 import torch
 
-from ..cuda_build import build_library
-from ..utils import debug
+from ..cuda_build import KERNELS, check_tensors, on_card
 from ..utils.graphs import count_launches, device_constant
 from .hitran import STRENGTH_SCALE
 from .lines import PreparedLines
 from .voigt import voigt_far_wing, voigt_line_shape
-
-_lib = None
-build_log = ""   # nvcc / ptxas output of the last build (registers, smem)
 
 
 @dataclasses.dataclass
@@ -179,20 +171,6 @@ def build_chunk_ranges(c0_sorted: np.ndarray, num_wpoints: int, fsteps: int,
                        hw=int(hw), shift_margin=int(shift_margin))
 
 
-def build():
-    """Compile the kernel (once per source hash) and load it."""
-    global _lib, build_log
-    if _lib is not None:
-        return _lib
-    lib, build_log = build_library("voigt_line_sample")
-    fn = lib.voigt_line_sample
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int64] * 2
-                   + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    _lib = lib
-    return lib
-
-
 def voigt_line_sample_reference(prep: PreparedLines, ns, *, num_wpoints: int,
                                 dw: float, fsteps: int, near: int,
                                 num_global: int, tau0=None, start: int = 0,
@@ -250,24 +228,10 @@ voigt_line_sample_reference.launches = 0
 
 def _check_cuda_args(prep: PreparedLines, ns, tau0, ranges: ChunkRanges,
                      start: int, num_wpoints: int, near: int):
-    device = tau0.device
     rows, L = prep.strength.shape
-    named = dict(center_idx=prep.center_idx, center_frac=prep.center_frac,
-                 strength=prep.strength, lorentz=prep.lorentz,
-                 doppler=prep.doppler, ns=ns, tau0=tau0)
-    for name, t in named.items():
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, tau0 on {device}")
-        want = torch.int32 if name == "center_idx" else torch.float32
-        if t.dtype != want:
-            raise ValueError(f"{name} has dtype {t.dtype}, expected {want}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        shape = {"ns": (rows,), "tau0": (rows, num_wpoints)}.get(name,
-                                                                (rows, L))
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                             f"expected {shape}")
+    check_tensors(prep.strength.device, dict(
+        prep.kernel_layout(), ns=(ns, (rows,), torch.float32),
+        tau0=(tau0, (rows, num_wpoints), torch.float32)))
     if start % ranges.tile:
         raise ValueError(f"block start {start} is not a multiple of the "
                          f"tile {ranges.tile}")
@@ -311,25 +275,16 @@ def accumulate_voigt(prep: PreparedLines, ns, ranges: ChunkRanges, *,
     if tau0 is None:
         tau0 = torch.zeros((rows, num_wpoints), dtype=torch.float32,
                            device=device)
-    if device.type == "cpu":
+    if not on_card(device, "accumulate_voigt"):
         return voigt_line_sample_reference(
             prep, ns, num_wpoints=num_wpoints, dw=dw, fsteps=fsteps,
             near=near, num_global=num_global, tau0=tau0, start=start)
-    if device.type != "cuda":
-        raise ValueError(f"accumulate_voigt: unsupported device {device}")
     _check_cuda_args(prep, ns, tau0, ranges, start, num_wpoints, near)
-    lib = build()
     zones = ranges.tables(device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.voigt_line_sample(
+    return KERNELS["voigt_line_sample"].launch(
+        accumulate_voigt, device, tau0,
         prep.center_idx.data_ptr(), prep.center_frac.data_ptr(),
         prep.strength.data_ptr(), prep.lorentz.data_ptr(),
         prep.doppler.data_ptr(), ns.data_ptr(), zones.data_ptr(),
         tau0.data_ptr(), rows, prep.strength.shape[1], start, num_wpoints,
-        num_global, fsteps, near, ranges.tile, zones.shape[0], dw, stream)
-    if err != 0:
-        raise RuntimeError(f"voigt_line_sample launch failed: CUDA error "
-                           f"{err}")
-    accumulate_voigt.launches += 1
-    debug.check_kernel_output("voigt_line_sample", tau0)
-    return tau0
+        num_global, fsteps, near, ranges.tile, zones.shape[0], dw)

@@ -30,7 +30,6 @@ import json
 import os
 import subprocess
 import sys
-import time
 
 import numpy as np
 import torch
@@ -399,18 +398,13 @@ def _import_other(root: str) -> str:
 
 class _Version:
     """One version of the package: its examples and its two dispatchers,
-    with both kernels built."""
+    which build their kernels at their first launch."""
 
     def __init__(self, package: str, label: str):
         self.label = label
         self.examples = importlib.import_module(f"{package}.examples")
         self.vk = importlib.import_module(f"{package}.gas_optics.voigt_kernel")
         self.bk = importlib.import_module(f"{package}.gas_optics.bins_kernel")
-        self.vk.build()
-        self.bk.build()
-        self.ptxas = [ln.strip() for ln in
-                      (self.vk.build_log + self.bk.build_log).splitlines()
-                      if "registers" in ln or "spill" in ln]
 
 
 def _turns(other, this):
@@ -439,14 +433,12 @@ def main(argv=None):
 
     dev = torch.device("cuda", 0)
     card = card_line()
-    t0 = time.perf_counter()
     other = _Version(_import_other(args.other), "other")
     this = _Version(__package__, "this")
     versions = (other, this)
     out = {"card": card, "clocks_idle": clocks(), "other": args.other,
-           "build_s": time.perf_counter() - t0, "ptxas_this": this.ptxas,
-           "ptxas_other": other.ptxas, "k1": [], "k2": []}
-    print(json.dumps({"card": card, "ptxas_this": this.ptxas}), flush=True)
+           "k1": [], "k2": []}
+    print(json.dumps({"card": card}), flush=True)
 
     def gases(**kw):
         """Each version's (lw, sw) gas optics of ``rfmip_like(**kw)``, and

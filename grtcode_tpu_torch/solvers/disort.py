@@ -32,13 +32,11 @@ wavenumber [W cm m-2].
 """
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
-from ..cuda_build import build_library
-from ..utils import debug, metrics
+from ..cuda_build import KERNELS, check_tensors, on_card
+from ..utils import metrics
 from ..utils.graphs import count_launches
 
 _DOUBLINGS = 37     # max doubling steps (covers tau up to _TAU_CLAMP)
@@ -55,8 +53,6 @@ _LOG2_T = torch.log(torch.tensor(2.0))
 # The stream counts the card's doubling kernel is built for.
 STREAMS_ON_CARD = (4, 8, 16)
 _stream_tables: dict = {}
-_lib = None
-build_log = ""   # nvcc / ptxas output of the last build (registers, smem)
 
 
 def gauss_streams(nstr: int):
@@ -226,37 +222,13 @@ def layer_operators_plain(dtau, omega, chi, k, mu0, beam_p, beam_m, *,
     return R, T, sr, st, d
 
 
-def build():
-    """Compile the doubling kernel (once per source hash) and load it."""
-    global _lib, build_log
-    if _lib is not None:
-        return _lib
-    lib, build_log = build_library("disort_doubling")
-    fn = lib.disort_doubling
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 17
-                   + [ctypes.c_int64] * 2 + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    _lib = lib
-    return lib
-
-
 def _check_cuda_args(named: dict, B: int, nlay: int, W: int, h: int):
     L1 = 2 * h + 1
     shapes = {"dtau": (B, nlay, W), "omega": (B, nlay, W),
               "k": (B, nlay, W), "chi": (B, nlay, W, L1), "mu0": (B,),
               "beam_p": (B, L1, h), "beam_m": (B, L1, h)}
-    device = named["dtau"].device
-    for name, t in named.items():
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, dtau on {device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} has dtype {t.dtype}, expected "
-                             "torch.float32")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if tuple(t.shape) != shapes[name]:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                             f"expected {shapes[name]}")
+    check_tensors(named["dtau"].device, {
+        name: (t, shapes[name], torch.float32) for name, t in named.items()})
 
 
 @count_launches
@@ -271,11 +243,9 @@ def layer_operators(dtau, omega, chi, k, mu0, beam_p, beam_m, *,
     each warp's elements in lockstep to their largest count, and adds
     those element-steps to ``doublings``' run itself."""
     device = dtau.device
-    if device.type == "cpu":
+    if not on_card(device, "layer_operators"):
         return layer_operators_plain(dtau, omega, chi, k, mu0, beam_p,
                                      beam_m, doublings=doublings)
-    if device.type != "cuda":
-        raise ValueError(f"layer_operators: unsupported device {device}")
     nstr = chi.shape[-1] - 1
     if nstr not in STREAMS_ON_CARD:
         raise ValueError(
@@ -295,19 +265,13 @@ def layer_operators(dtau, omega, chi, k, mu0, beam_p, beam_m, *,
     if doublings is not None:
         doublings.add_needed(k)
         run = doublings.run_ptr(device)
-    lib = build()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.disort_doubling(
+    return KERNELS["disort_doubling"].launch(
+        layer_operators, device, (R, T, sr, st, d),
         h, dtau.data_ptr(), omega.data_ptr(), chi.data_ptr(), k.data_ptr(),
         mu0.data_ptr(), beam_p.data_ptr(), beam_m.data_ptr(), mu.data_ptr(),
         wq.data_ptr(), ppp_l.data_ptr(), ppm_l.data_ptr(), R.data_ptr(),
         T.data_ptr(), sr.data_ptr(), st.data_ptr(), d.data_ptr(), run,
-        B * nlay * W, nlay * W, _LN2, stream)
-    if err != 0:
-        raise RuntimeError(f"disort_doubling launch failed: CUDA error {err}")
-    layer_operators.launches += 1
-    debug.check_kernel_output("disort_doubling", (R, T, sr, st, d))
-    return R, T, sr, st, d
+        B * nlay * W, nlay * W, _LN2)
 
 
 def _check_precision():

@@ -16,7 +16,7 @@ checks and guards its inputs with range macros (utilities/src/debug.h:
   * ``checked()`` — wraps a function so it returns ``(error, value)``
     instead of raising on a trapped value or a failed :func:`check`;
   * ``disable_jit()`` — the counterpart of ``jax.disable_jit()``: inside
-    it a driver or bench step on a CUDA device runs eagerly, op by op,
+    it a driver step on a CUDA device runs eagerly, op by op,
     instead of replaying its captured CUDA graph
     (:mod:`.graphs`); ``debug_mode()`` implies it, as JAX's
     ``debug_nans`` re-runs a step un-jitted.  It is the only way to an

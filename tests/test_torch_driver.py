@@ -405,7 +405,7 @@ def test_port_imports_no_jax():
         "for m in ('bindings.capi_impl', 'parallel.mesh', 'parallel.clear_sky',\n"
         "          'parallel.distributed', 'parallel.dryrun', 'native',\n"
         "          'utils.metrics', 'utils.debug', 'utils.segments',\n"
-        "          'bench', 'x64_validate'):\n"
+        "          'x64_validate'):\n"
         "    assert 'grtcode_tpu_torch.' + m in sys.modules, m\n"
         "import torch.distributed as dist\n"
         "assert not dist.is_initialized(), 'a process group was started'\n"

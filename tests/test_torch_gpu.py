@@ -10,8 +10,7 @@ ABI's device selection, its default (the current CUDA device) and
 fluxes on the card, and the library surface on the card: Optics.sample
 (views of the card's tensors, equal to striding) and rayleigh_optics
 against the CPU, the library path's hand-built step equal to the
-driver's, the headline benchmark's smoke run on the card (a valid JSON
-line, 11 K1 launches a step), the float64 solver check on the card, the
+driver's, the float64 solver check on the card, the
 scatter method: on the card against the CPU (also beyond the
 line_sample tables' limits and on a block past the grid end), and K1
 against it on the card, and the captured steps: each path's replayed
@@ -20,7 +19,7 @@ all-sky, DISORT), the bin kernel and the streamed step on each block's
 line window bit-identical to the whole catalog's prep, an eager step
 with no host sync, a new lit count in the
 same bucket replaying with no new capture, the launch counts advancing on
-replay, a failing capture raising, and the bench's step replayed; and the
+replay and a failing capture raising; and the
 layers' device times read from a replay's timing events, against the
 profiler's kernel times, and the driver's step counts.
 
@@ -30,8 +29,6 @@ imports JAX, so run it there with the conftest switched off:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_gpu.py
 """
-import json
-
 import numpy as np
 import pytest
 import torch
@@ -953,24 +950,6 @@ def test_library_step_on_the_card_is_the_driver_step(cuda):
         assert torch.equal(hand[var], run[var]), var
 
 
-def test_bench_smoke_on_the_card(cuda, capsys):
-    from grtcode_tpu_torch import bench
-
-    vk.accumulate_voigt.launches = 0
-    res = bench.main(["--smoke"], device=cuda)
-    line = capsys.readouterr().out.strip().splitlines()[-1]
-    assert json.loads(line) == res
-    assert res["metric"] == "gridpoints_per_s_per_chip" and res["value"] > 0
-    assert res["device"] == torch.cuda.get_device_name(cuda)
-    for key in ("peak_hbm_gib", "est_tflops", "est_share_of_f32_peak",
-                "kernel_bound_ms_per_step", "compile_first_s"):
-        assert res[key] > 0, key
-    # Two untimed steps (the warm-up, the capture) and two timed steps of
-    # 11 K1 launches each.
-    assert res["kernel_launches_per_step"]["voigt_line_sample"] == 11
-    assert vk.accumulate_voigt.launches == 44
-
-
 def test_x64_validate_on_the_card(cuda, capsys):
     from grtcode_tpu_torch import x64_validate
 
@@ -1037,7 +1016,7 @@ def test_kernel_matches_scatter_on_the_card(cuda):
 
 
 # ---------------------------------------------------------------------------
-# Captured steps: each driver or bench step on the card is a CUDA graph,
+# Captured steps: each driver step on the card is a CUDA graph,
 # captured once per key and replayed (grtcode_tpu_torch/utils/graphs.py)
 # ---------------------------------------------------------------------------
 
@@ -1212,25 +1191,6 @@ def test_failed_capture_raises(cuda):
         res = driver.run(atm)
     assert len(driver._step_cache.entries) == 2
     assert torch.isfinite(res.tiers["af"]["rlu"]).all()
-
-
-def test_bench_step_replays_its_graph(cuda):
-    from grtcode_tpu_torch import bench
-    from grtcode_tpu_torch.utils import debug
-
-    lw, sw, solar, batch, _, _ = bench.build(smoke=True, device=cuda)
-    step = bench.make_step(lw, sw, solar)
-    chain = torch.zeros((), device=cuda)
-    with debug.disable_jit():
-        want = step(*bench.step_args(batch), chain)
-    assert len(step.cache.entries) == 0
-    k1 = vk.accumulate_voigt.launches
-    for _ in range(3):               # warm-up, capture and replay, replay
-        got = step(*bench.step_args(batch), chain)
-        for g, w in zip(got, want):
-            assert torch.equal(g, w)
-    assert len(step.cache.entries) == 1
-    assert vk.accumulate_voigt.launches - k1 == 33
 
 
 def test_first_capture_turns_on_expandable_segments(cuda):

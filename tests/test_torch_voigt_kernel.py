@@ -22,7 +22,9 @@ from grtcode_tpu.gas_optics.optical_depth import (accumulate_near_pointwise,
                                                   accumulate_tiled)
 from grtcode_tpu.spectral import SpectralGrid
 from grtcode_tpu.utils import curtis_godson as jcg
+from grtcode_tpu_torch.gas_optics import bins as bm, bins_kernel as bk
 from grtcode_tpu_torch.gas_optics import lines, voigt_kernel as vk
+from grtcode_tpu_torch.solvers import disort
 
 TILE = 32
 CH = 16
@@ -200,15 +202,31 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(setup, bad):
     vk._check_cuda_args(*_args(setup))        # the unchanged call is fine
 
 
-def test_other_devices_raise(setup):
-    grid = setup[0]
+@pytest.mark.parametrize("kernel", ["voigt_line_sample", "voigt_bins",
+                                    "disort_doubling"])
+def test_other_devices_raise(setup, kernel):
+    """Each dispatcher takes its plain version on the CPU, launches on
+    CUDA and refuses any other device."""
+    grid, bound = setup[0], setup[1]
     meta = lines.PreparedLines(*(a.to("meta") for a in (
         setup[4].center_idx, setup[4].center_frac, setup[4].strength,
         setup[4].lorentz, setup[4].doppler)))
+    ns = setup[5].to("meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        vk.accumulate_voigt(meta, setup[5].to("meta"), setup[6],
-                            num_wpoints=4 * TILE, dw=float(grid.dw),
-                            fsteps=FSTEPS, near=NEAR, num_global=grid.n)
+        if kernel == "voigt_line_sample":
+            vk.accumulate_voigt(meta, ns, setup[6], num_wpoints=4 * TILE,
+                                dw=float(grid.dw), fsteps=FSTEPS, near=NEAR,
+                                num_global=grid.n)
+        elif kernel == "voigt_bins":
+            bins = bm.create_spectral_bins(grid.n, grid.w0, grid.dw, 1.0)
+            bk.accumulate_bins_kernel(
+                meta, ns, bm.build_bin_ranges(bound, bins, mode="bin_sweep"),
+                bins)
+        else:
+            mu0 = torch.tensor([0.6])
+            sub = disort.sublayers(*torch.rand(3, 1, 2, 5), 8)
+            disort.layer_operators(*(t.to("meta") for t in (
+                *sub, mu0, *disort.beam_vectors(mu0, 8))))
 
 
 
